@@ -1,0 +1,187 @@
+"""Projection- and descriptor-guided matching over whole frames.
+
+Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset RGB-D tracking
+uses): each search builds a dense (candidates x features) mask — window
+radius, octave range, rotation bins — over the full Hamming matrix, and
+conflicts (several candidates claiming one feature) go to the smallest
+distance, then the lowest candidate row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..geometry import projection, se3
+from . import hamming
+
+
+def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor,
+                  scale_factor: float, n_levels: int) -> torch.Tensor:
+    """`MapPoint::PredictScale` parity: level = ceil(log(maxDist/dist)/log(s)),
+    clipped to [0, L-1]."""
+    ratio = max_dist / torch.clamp(dist, min=1e-9)
+    log_s = torch.log(torch.tensor(scale_factor, dtype=ratio.dtype,
+                                   device=ratio.device))
+    lvl = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_s)
+    return torch.clamp(lvl, 0, n_levels - 1).to(torch.int32)
+
+
+def frustum_check(cam: projection.Camera, pose_cw: torch.Tensor,
+                  pt_pos: torch.Tensor, pt_normal: torch.Tensor,
+                  pt_min_dist: torch.Tensor, pt_max_dist: torch.Tensor,
+                  bounds: torch.Tensor, view_cos_limit: float = 0.5):
+    """`Frame::isInFrustum` (`src/Frame.cc:387-443`) for a batch of points,
+    with the 0.8/1.2 scale-invariance slack.
+
+    Returns (ok, uv (P,2), ur (P,), dist (P,), view_cos (P,))."""
+    p_cam = se3.transform_points(pose_cw, pt_pos)
+    z = p_cam[..., 2]
+    uvr, _ = projection.project_stereo(cam, p_cam)
+    uv, ur = uvr[..., :2], uvr[..., 2]
+    center = se3.se3_inv(pose_cw)[..., :3, 3]
+    po = pt_pos - center
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    view_cos = torch.sum(po * pt_normal, -1) / torch.clamp(dist, min=1e-9)
+    ok = (
+        (z > 0)
+        & (uv[..., 0] >= bounds[0]) & (uv[..., 0] < bounds[1])
+        & (uv[..., 1] >= bounds[2]) & (uv[..., 1] < bounds[3])
+        & (dist >= 0.8 * pt_min_dist) & (dist <= 1.2 * pt_max_dist)
+        & (view_cos > view_cos_limit)
+    )
+    return ok, uv, ur, dist, view_cos
+
+
+def _resolve_conflicts(best_feat: torch.Tensor, best_dist: torch.Tensor,
+                       ok: torch.Tensor, n_features: int) -> torch.Tensor:
+    """Per-feature winner among candidate rows: (N,) candidate index or -1.
+    Ties by distance, then by candidate order."""
+    P = best_feat.shape[0]
+    dev = best_feat.device
+    sentinel = torch.iinfo(torch.int32).max
+    score = torch.where(
+        ok, best_dist.to(torch.int32) * P + torch.arange(P, dtype=torch.int32,
+                                                          device=dev),
+        torch.full((P,), sentinel, dtype=torch.int32, device=dev))
+    feat_ids = torch.arange(n_features, dtype=torch.int32, device=dev)
+    oh = (best_feat[:, None] == feat_ids[None, :]) & ok[:, None]  # (P,N)
+    score_col = torch.where(oh, score[:, None], torch.full_like(oh, sentinel,
+                                                                dtype=torch.int32))
+    feat_best = torch.amin(score_col, dim=0)
+    return torch.where(feat_best < sentinel, feat_best % P,
+                       torch.full_like(feat_best, -1))
+
+
+def _pair_d2(uv: torch.Tensor, kp_xy: torch.Tensor) -> torch.Tensor:
+    """(P,N) squared pixel distances via the expanded form (one product)."""
+    return (torch.sum(uv * uv, -1)[:, None] + torch.sum(kp_xy * kp_xy, -1)[None, :]
+            - 2.0 * (uv @ kp_xy.T))
+
+
+def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def search_by_projection_points(
+    cam: projection.Camera,
+    pose_cw: torch.Tensor,
+    kp_xy: torch.Tensor, kp_octave: torch.Tensor, kp_desc_bits: torch.Tensor,
+    kp_valid: torch.Tensor, kp_matched: torch.Tensor,
+    pt_pos: torch.Tensor, pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor, pt_desc_bits: torch.Tensor, pt_valid: torch.Tensor,
+    bounds, scale_factors, th: float = 1.0, nn_ratio: float = 0.8,
+    n_levels: int = 4, scale_factor: float = 1.5,
+    dist_th: int = hamming.TH_HIGH, use_ratio: bool = True,
+):
+    """Local-map search (`ORBmatcher::SearchByProjection`,
+    `src/ORBmatcher.cc:45-129`). Returns (matches (N,) i32 candidate row or
+    -1, n_matches, visible_mask (P,)). Features in kp_matched are skipped."""
+    bounds = _as_tensor(bounds, pt_pos)
+    scale_factors = _as_tensor(scale_factors, pt_pos)
+    N = kp_xy.shape[0]
+    ok, uv, _, dist, view_cos = frustum_check(
+        cam, pose_cw, pt_pos, pt_normal, pt_min_dist, pt_max_dist, bounds)
+    ok = ok & pt_valid
+    lvl = predict_scale(dist, pt_max_dist, scale_factor, n_levels)
+    r = torch.where(view_cos > 0.998, 2.5, 4.0).to(torch.float32)
+    radius = th * r * scale_factors[lvl.long()]  # ORBmatcher.cc:84-90
+    d2 = _pair_d2(uv, kp_xy)
+    in_win = d2 <= (radius[:, None] ** 2)
+    oct_ok = (kp_octave[None, :] >= (lvl - 1)[:, None]) & (
+        kp_octave[None, :] <= lvl[:, None])
+    mask = in_win & oct_ok & kp_valid[None, :] & ok[:, None] & (~kp_matched)[None, :]
+    dmat = hamming.hamming_matrix_bits(pt_desc_bits, kp_desc_bits)
+    idx, best, second = hamming.masked_best2(dmat, extra_mask=mask)
+    # the best/second level ratio rule is approximated by always applying
+    # the ratio (stricter; the JAX version documents the same deviation)
+    good = ok & (best <= dist_th)
+    if use_ratio:
+        good = good & (best.to(torch.float32)
+                       <= nn_ratio * second.to(torch.float32))
+    matches = _resolve_conflicts(idx, best, good, N)
+    return matches, torch.sum((matches >= 0).to(torch.int32)), ok
+
+
+def search_by_projection_last(
+    cam: projection.Camera,
+    pose_cw: torch.Tensor,
+    kp_xy: torch.Tensor, kp_octave: torch.Tensor, kp_angle: torch.Tensor,
+    kp_desc_bits: torch.Tensor, kp_valid: torch.Tensor,
+    last_pt_pos: torch.Tensor, last_octave: torch.Tensor, last_angle: torch.Tensor,
+    last_desc_bits: torch.Tensor, last_valid: torch.Tensor,
+    bounds, scale_factors, th: float = 15.0, check_rotation: bool = True,
+):
+    """Frame-to-frame search (`src/ORBmatcher.cc:1331-1473`): window radius
+    th * scale_factor[last octave], candidate octaves in [oct-1, oct+1].
+    Returns (matches (N,), n)."""
+    bounds = _as_tensor(bounds, last_pt_pos)
+    scale_factors = _as_tensor(scale_factors, last_pt_pos)
+    N = kp_xy.shape[0]
+    p_cam = se3.transform_points(pose_cw, last_pt_pos)
+    uv, z = projection.project(cam, p_cam)
+    ok = (
+        last_valid & (z > 0)
+        & (uv[..., 0] >= bounds[0]) & (uv[..., 0] < bounds[1])
+        & (uv[..., 1] >= bounds[2]) & (uv[..., 1] < bounds[3])
+    )
+    radius = th * scale_factors[torch.clamp(last_octave, min=0).long()]
+    d2 = _pair_d2(uv, kp_xy)
+    in_win = d2 <= (radius[:, None] ** 2)
+    oct_ok = (kp_octave[None, :] >= (last_octave - 1)[:, None]) & (
+        kp_octave[None, :] <= (last_octave + 1)[:, None])
+    mask = in_win & oct_ok & kp_valid[None, :] & ok[:, None]
+    dmat = hamming.hamming_matrix_bits(last_desc_bits, kp_desc_bits)
+    idx, best, _ = hamming.masked_best2(dmat, extra_mask=mask)
+    good = ok & (best <= hamming.TH_HIGH)
+    if check_rotation:
+        rot_ok = hamming.rotation_consistency_mask(
+            last_angle, kp_angle[torch.clamp(idx, min=0).long()], good)
+        good = good & rot_ok
+    matches = _resolve_conflicts(idx, best, good, N)
+    return matches, torch.sum((matches >= 0).to(torch.int32))
+
+
+def search_by_descriptor(desc_bits_1: torch.Tensor, valid_1: torch.Tensor,
+                         desc_bits_2: torch.Tensor, valid_2: torch.Tensor,
+                         angle_1: torch.Tensor | None = None,
+                         angle_2: torch.Tensor | None = None,
+                         th: int = hamming.TH_LOW, nn_ratio: float = 0.7,
+                         check_rotation: bool = True):
+    """Best/second matching with ratio and rotation gates, one-to-one on
+    the second set (the BoW-free core of `ORBmatcher::SearchByBoW`,
+    `src/ORBmatcher.cc:159-291`). Returns (matches (N1,), n)."""
+    dmat = hamming.hamming_matrix_bits(desc_bits_1, desc_bits_2)
+    mask = valid_1[:, None] & valid_2[None, :]
+    idx, best, second = hamming.masked_best2(dmat, extra_mask=mask)
+    good = valid_1 & (best <= th) & (
+        best.to(torch.float32) < nn_ratio * second.to(torch.float32))
+    if check_rotation and angle_1 is not None:
+        good = good & hamming.rotation_consistency_mask(
+            angle_1, angle_2[torch.clamp(idx, min=0).long()], good)
+    n2 = desc_bits_2.shape[0]
+    winner_row = _resolve_conflicts(idx, best, good, n2)
+    owner = winner_row[torch.clamp(idx, min=0).long()]
+    good = good & (owner == torch.arange(desc_bits_1.shape[0], device=owner.device))
+    minus1 = torch.full_like(idx, -1)
+    return torch.where(good, idx, minus1), torch.sum(good.to(torch.int32))
+

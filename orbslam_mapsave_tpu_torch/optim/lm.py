@@ -1,0 +1,64 @@
+"""Shared Levenberg-Marquardt pieces for the geometric optimizers.
+
+Port of `orbslam_mapsave_tpu/optim/lm.py` (the subset pose optimization
+uses). Conventions: poses are Tcw 4x4 matrices, tangent updates are LEFT
+multiplicative T <- se3_exp(xi) @ T with xi = [v(3), w(3)], and the robust
+loss is Huber applied as IRLS weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# chi-square 95% gates (SURVEY.md appendix A)
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+
+
+def huber_weight(chi2: torch.Tensor, delta2: torch.Tensor) -> torch.Tensor:
+    """IRLS weight for the Huber kernel: 1 inside delta, delta/|e| outside."""
+    r = torch.sqrt(torch.clamp(chi2, min=1e-20))
+    d = torch.sqrt(delta2)
+    return torch.where(chi2 <= delta2, torch.ones_like(r), d / r)
+
+
+def proj_jacobian(p_cam: torch.Tensor, fx: float, fy: float) -> torch.Tensor:
+    """d(pixel)/d(camera point): (...,2,3)."""
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
+    zi = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    row0 = torch.stack([fx * zi, zero, -fx * x * zi2], dim=-1)
+    row1 = torch.stack([zero, fy * zi, -fy * y * zi2], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def point_pose_jacobian(p_cam: torch.Tensor) -> torch.Tensor:
+    """d(camera point)/d(pose tangent [v,w]) for the left update: (...,3,6).
+    dP/dv = I, dP/dw = -[P]x."""
+    from ..geometry.se3 import hat
+
+    eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(
+        p_cam.shape[:-1] + (3, 3))
+    return torch.cat([eye, -hat(p_cam)], dim=-1)
+
+
+def solve_spd(H: torch.Tensor, g: torch.Tensor, lam,
+              refine_steps: int = 2) -> torch.Tensor:
+    """Solve (H + lam*I) dx = g in float32 with Jacobi pre-scaling and
+    iterative refinement; a system that is not SPD (or any non-finite
+    result) gives dx = 0, as the JAX version's NaN -> 0 rule does."""
+    d = H.shape[-1]
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-12))
+    Hs = H * s[..., :, None] * s[..., None, :]
+    Hs = Hs + lam * torch.eye(d, dtype=H.dtype, device=H.device)
+    gs = g * s
+    L, info = torch.linalg.cholesky_ex(Hs)
+    y = torch.cholesky_solve(gs[..., None], L)[..., 0]
+    for _ in range(refine_steps):
+        r = gs - (Hs @ y[..., None])[..., 0]
+        y = y + torch.cholesky_solve(r[..., None], L)[..., 0]
+    dx = y * s
+    ok = torch.isfinite(dx) & (info == 0)[..., None]
+    return torch.where(ok, dx, torch.zeros_like(dx))

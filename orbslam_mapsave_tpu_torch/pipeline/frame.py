@@ -1,0 +1,79 @@
+"""Per-frame feature container built from one RGB-D image pair.
+
+Port of `orbslam_mapsave_tpu/pipeline/frame.py` (RGB-D only): ORB
+extraction, keypoint undistortion (`Frame::UndistortKeyPoints`), the RGB-D
+pseudo-stereo (`Frame::ComputeStereoFromRGBD`, `src/Frame.cc:759-780`) and
+the scale-pyramid tables.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry import projection
+from ..ops import hamming, orb
+
+
+class FrameData(NamedTuple):
+    timestamp: torch.Tensor  # () f32 offset from the run's f64 epoch
+    kp_xy_raw: torch.Tensor  # (N,2) raw pixel coords
+    kp_xy: torch.Tensor  # (N,2) undistorted
+    kp_ur: torch.Tensor  # (N,) right-u (<0 mono)
+    kp_depth: torch.Tensor  # (N,) depth (<=0 none)
+    kp_octave: torch.Tensor  # (N,) i32
+    kp_angle: torch.Tensor  # (N,) degrees
+    kp_response: torch.Tensor  # (N,)
+    desc: torch.Tensor  # (N,32) u8
+    desc_bits: torch.Tensor  # (N,256) i8
+    valid: torch.Tensor  # (N,) bool
+
+
+class FrameBuilder:
+    """Static camera/ORB config + the per-frame build on a given device."""
+
+    def __init__(self, cam: projection.Camera, spec: orb.ORBSpec,
+                 device="cpu"):
+        self.cam = cam
+        self.spec = spec
+        self.device = torch.device(device)
+        self.scale_factors = np.asarray(
+            [spec.scale_factor**i for i in range(spec.n_levels)], np.float32)
+        self.inv_level_sigma2 = (1.0 / (self.scale_factors**2)).astype(np.float32)
+        self.bounds = projection.compute_image_bounds(cam)
+        # device copies of the small tables the per-frame steps index
+        self.scale_factors_t = torch.from_numpy(self.scale_factors).to(self.device)
+        self.inv_level_sigma2_t = torch.from_numpy(self.inv_level_sigma2).to(self.device)
+        self.bounds_t = torch.from_numpy(self.bounds).to(self.device)
+
+    def build(self, image, timestamp: float, depth) -> FrameData:
+        """RGB-D frame from an image (H,W) and a depth map (H,W) in meters,
+        in any numeric dtype (u8 image and f16 depth are what a sensor
+        delivers); all compute runs in float32 on `self.device`."""
+        cam = self.cam
+        image = torch.as_tensor(image).to(self.device, torch.float32)
+        depth = torch.as_tensor(depth).to(self.device, torch.float32)
+        kp = orb.extract(self.spec, image)
+        und = projection.undistort_points(cam, kp["xy"])
+        # sample depth at the rounded raw keypoint coords, Frame.cc:765-768
+        xi = torch.clamp(torch.round(kp["xy"][:, 0]).long(), 0, depth.shape[1] - 1)
+        yi = torch.clamp(torch.round(kp["xy"][:, 1]).long(), 0, depth.shape[0] - 1)
+        d = depth[yi, xi]
+        has_d = d > 0
+        ur = torch.where(has_d, und[:, 0] - cam.bf / torch.where(has_d, d, torch.ones_like(d)),
+                         torch.full_like(d, -1.0))
+        return FrameData(
+            timestamp=torch.tensor(timestamp, dtype=torch.float32, device=self.device),
+            kp_xy_raw=kp["xy"],
+            kp_xy=und,
+            kp_ur=ur,
+            kp_depth=torch.where(has_d, d, torch.full_like(d, -1.0)),
+            kp_octave=kp["octave"],
+            kp_angle=kp["angle_deg"],
+            kp_response=kp["response"],
+            desc=kp["desc"],
+            desc_bits=hamming.unpack_bits(kp["desc"]),
+            valid=kp["valid"],
+        )

@@ -1,0 +1,181 @@
+"""System facade — the public API mirroring the reference's `System` class.
+
+Port of `orbslam_mapsave_tpu/pipeline/system.py` for the RGB-D tracking
+slice: `SLAMSystem(cfg, Sensor.RGBD, vocabulary=None,
+enable_mapping=False)` tracks RGB-D frames against a map that grows at
+every keyframe. Local mapping, loop closing, relocalization with a
+vocabulary, map reuse, monocular and stereo input are later slices and
+raise NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import enum
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import config as config_mod
+from ..geometry import projection
+from ..io import trajectory as traj_io
+from ..ops import orb
+from ..slammap import mapstate as ms
+from . import frame as frame_mod
+from . import tracking
+
+
+class Sensor(enum.Enum):
+    MONOCULAR = 0
+    STEREO = 1
+    RGBD = 2
+
+
+def _not_yet(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to orbslam_mapsave_tpu_torch yet: this "
+        "package runs RGB-D tracking (Sensor.RGBD, enable_mapping=False, no "
+        "vocabulary); use orbslam_mapsave_tpu for the rest")
+
+
+class SLAMSystem:
+    """Facade; the constructor mirrors the JAX `SLAMSystem` (`System::System`,
+    `include/System.h:81-84`) plus a `device` ("cuda" when a card is
+    present, else "cpu")."""
+
+    def __init__(self, cfg: config_mod.SystemConfig, sensor: Sensor,
+                 vocabulary=None, reuse_map_path: str | None = None,
+                 enable_loop_closing: bool = True,
+                 enable_mapping: bool = True, device=None):
+        if sensor != Sensor.RGBD:
+            raise _not_yet(f"{sensor.name} input")
+        if enable_mapping:
+            raise _not_yet("local mapping (enable_mapping=True)")
+        if vocabulary is not None:
+            raise _not_yet("a vocabulary (loop closing / BoW relocalization)")
+        if reuse_map_path:
+            raise _not_yet("map reuse (reuse_map_path)")
+        del enable_loop_closing  # no loop closing without a vocabulary
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.sensor = sensor
+        c = cfg.camera
+        self.cam = projection.Camera.create(
+            c.fx, c.fy, c.cx, c.cy, c.k1, c.k2, c.p1, c.p2, c.k3,
+            bf=c.bf, width=c.width, height=c.height)
+        self.spec = orb.ORBSpec.create(
+            c.height, c.width,
+            n_features=cfg.orb.n_features, n_levels=cfg.orb.n_levels,
+            scale_factor=cfg.orb.scale_factor, ini_th=cfg.orb.ini_th_fast,
+            min_th=cfg.orb.min_th_fast, max_kp=cfg.max_keypoints)
+        self.builder = frame_mod.FrameBuilder(self.cam, self.spec, self.device)
+        self.map = ms.empty_map(cfg.max_keyframes, cfg.max_points,
+                                cfg.max_keypoints, self.device)
+        # thDepth in meters = bf/fx * ThDepth (Tracking.cc:227-232)
+        tcfg = tracking.TrackerConfig(
+            max_frames=int(c.fps),
+            th_depth=float(c.bf) / float(c.fx) * float(c.th_depth),
+            local_th=3.0, motion_th=15.0)  # RGB-D (Tracking.cc:1127,1445-1450)
+        self.tracker = tracking.Tracker(
+            self.cam, self.builder, self.map, tcfg,
+            n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+
+    # ------ frame entry point (System.cc:261-490) ------
+    def track_rgbd(self, image, depth, timestamp: float):
+        """Track one RGB-D frame; returns its Tcw (4,4) numpy pose."""
+        pose = self.tracker.track_rgbd(image, depth, timestamp)
+        self._run_backends()
+        return pose
+
+    def _run_backends(self):
+        """After each frame: reset when lost right after initialization,
+        and recycle slots near capacity. (The JAX version also drains its
+        keyframe queue into loop closing, a later slice.)"""
+        self.map = self.tracker.map
+        if self.tracker.needs_reset:
+            # lost with <= 5 keyframes right after init: start over
+            # (`src/Tracking.cc:712-718`)
+            self.tracker.needs_reset = False
+            self.reset()
+            return
+        self._maybe_compact()
+        self.tracker.map = self.map
+
+    def _maybe_compact(self):
+        """Slot recycling: when an allocator nears capacity, renumber live
+        slots into a dense prefix and remap every holder of old slot ids."""
+        trk = self.tracker
+        if trk.ctrl is None:
+            return
+        cfg = self.cfg
+        did = False
+        if trk.n_pt_watermark > 0.9 * cfg.max_points:
+            self.map, new_pt = ms.compact_points(self.map)
+            lm_ = trk.ctrl.last_matched
+            trk.ctrl = trk.ctrl._replace(
+                last_matched=torch.where(lm_ >= 0, new_pt[torch.clamp(lm_, min=0).long()],
+                                         torch.full_like(lm_, -1)),
+                recent_start=int(self.map.n_pt))
+            did = True
+        if trk.n_kf_watermark > 0.9 * cfg.max_keyframes:
+            self.map, new_kf = ms.compact_keyframes(self.map)
+            trk.ctrl = trk.ctrl._replace(
+                ref_kf=max(int(new_kf[max(trk.ctrl.ref_kf, 0)]), 0))
+            trk.ref_kf = max(int(new_kf[trk.ref_kf]), 0) if trk.ref_kf >= 0 else 0
+            did = True
+        if did:
+            trk.n_pt_watermark = 0
+            trk.n_kf_watermark = 0
+
+    def reset(self):
+        """`System::Reset` / `Tracking::Reset` (`src/Tracking.cc:1777-1819`)."""
+        cfg = self.cfg
+        self.map = ms.empty_map(cfg.max_keyframes, cfg.max_points,
+                                cfg.max_keypoints, self.device)
+        trk = self.tracker
+        trk.map = self.map
+        trk.state = tracking.NO_IMAGES_YET
+        trk.ctrl = None
+        trk._trajectory.clear()
+        trk.needs_reset = False
+        trk.ts_epoch = None
+        trk.n_pt_watermark = 0
+        trk.n_kf_watermark = 0
+
+    # ------ trajectory export (System.cc:675-836) ------
+    def save_camera_trajectory(self, path: str | Path):
+        tr = self.tracker.trajectory
+        traj_io.save_camera_trajectory(
+            path, [t for t, _, _ in tr], [p for _, p, _ in tr],
+            lost=[l for _, _, l in tr])
+
+    def keyframe_trajectory(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps (K,) f64 absolute, poses Tcw (K,4,4)) of the valid
+        keyframes; device stamps are f32 offsets from the run's epoch."""
+        valid = self.map.kf_valid.cpu().numpy()
+        epoch = self.tracker.ts_epoch or 0.0
+        ts = self.map.kf_timestamp.cpu().numpy().astype(np.float64)[valid] + epoch
+        return ts, self.map.kf_pose.cpu().numpy()[valid]
+
+    def save_keyframe_trajectory(self, path: str | Path):
+        ts, poses = self.keyframe_trajectory()
+        traj_io.save_keyframe_trajectory(path, ts, poses)
+
+    def save_localization_trajectory(self, path: str | Path):
+        tr = self.tracker.trajectory
+        traj_io.save_matrix_trajectory(path, [p for _, p, l in tr if not l])
+
+    # ------ introspection (System.h:144-160 analogues) ------
+    @property
+    def n_keyframes(self) -> int:
+        return int(torch.sum(self.map.kf_valid.to(torch.int32)))
+
+    @property
+    def n_points(self) -> int:
+        return int(torch.sum(self.map.pt_valid.to(torch.int32)))
+
+    @property
+    def tracking_state(self) -> int:
+        return self.tracker.state

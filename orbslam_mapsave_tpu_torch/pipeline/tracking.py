@@ -1,0 +1,380 @@
+"""Per-frame RGB-D tracking steps plus the host driver.
+
+Port of `orbslam_mapsave_tpu/pipeline/tracking.py` (the RGB-D subset):
+`Tracking` parity (`src/Tracking.cc:541-741`) — initialization, motion-model
+and reference-KF tracking, motion-only pose optimization, local-map
+tracking and RGB-D keyframe creation, as functions over fixed-capacity
+tensors. The host branches on scalar outcomes per frame (see
+`fused_step.py`); the JAX version batches those reads because its chip sits
+behind a network link, the card here does not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..geometry import projection, se3
+from ..ops import hamming, matching
+from ..optim import pose_opt
+from ..slammap import mapstate as ms
+from . import frame as frame_mod
+
+NO_IMAGES_YET = 0
+NOT_INITIALIZED = 1
+OK = 2
+LOST = 3
+
+LOCAL_KFS = 80  # Tracking.cc:1545
+LOCAL_PTS = 4096  # static cap for the gathered local point set
+
+_I32 = torch.int32
+
+
+def _clip0(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0).long()
+
+
+def _minus1(like: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(like, -1, dtype=_I32)
+
+
+def make_tracking_kernels(cam: projection.Camera, builder: frame_mod.FrameBuilder,
+                          n_levels: int, scale_factor: float) -> dict:
+    """The per-frame step functions for a fixed geometry/config."""
+    # device copies of the small tables (no host->device copy per call)
+    scale_factors = builder.scale_factors_t
+    bounds_t = builder.bounds_t
+    inv_sigma2 = builder.inv_level_sigma2_t
+    bounds = builder.bounds
+    # frustum prefilter margins (25% of the image bounds), float32 on host
+    mx = np.float32(0.25) * (bounds[1] - bounds[0])
+    my = np.float32(0.25) * (bounds[3] - bounds[2])
+    view_box = [float(bounds[0] - mx), float(bounds[1] + mx),
+                float(bounds[2] - my), float(bounds[3] + my)]
+
+    def init_rgbd(state: ms.MapState, frame: frame_mod.FrameData, frame_id: int):
+        """`Tracking::StereoInitialization` (`src/Tracking.cc:750-802`):
+        first KF at the origin; every feature with depth becomes a point."""
+        pose = torch.eye(4, dtype=torch.float32, device=state.device)
+        state, kf = ms.add_keyframe(
+            state, pose, frame.timestamp, frame_id,
+            frame.kp_xy, frame.kp_ur, frame.kp_depth, frame.kp_octave,
+            frame.kp_angle, frame.valid, frame.desc)
+        has_depth = frame.valid & (frame.kp_depth > 0)
+        pts = projection.backproject(cam, frame.kp_xy, frame.kp_depth)
+        state, slots = ms.add_points(state, pts, frame.desc, kf, kf, has_depth)
+        feat = torch.arange(frame.kp_xy.shape[0], dtype=_I32, device=state.device)
+        state = ms.add_observations(state, kf, slots, feat, has_depth)
+        state = ms.compute_distinctive_descriptors_idx(
+            state, torch.clamp(slots, min=0), slots >= 0)
+        state = ms.update_normal_and_depth_idx(
+            state, torch.clamp(slots, min=0), slots >= 0, scale_factors, n_levels)
+        state = ms.update_connections(state, kf)
+        matched = torch.where(has_depth, slots, _minus1(slots))
+        return state, kf, matched, torch.sum(has_depth.to(_I32))
+
+    def track_motion(state: ms.MapState, frame: frame_mod.FrameData,
+                     pose_pred: torch.Tensor, last_matched: torch.Tensor,
+                     last_frame: frame_mod.FrameData, th: float,
+                     last_pose: torch.Tensor):
+        """`Tracking::TrackWithMotionModel` (`src/Tracking.cc:1114-1175`):
+        project the last frame's map points through the predicted pose.
+        Returns (matched_pt (N,) map slot or -1, pt_w (N,3), have (N,),
+        n_matches). The localization-only temporal points of the JAX
+        version are not part of this slice; rows without a map point carry
+        the last frame's back-projected features, as there, so the unused
+        rows of the pose problem hold the same numbers."""
+        ok_last = (last_matched >= 0) & state.pt_valid[_clip0(last_matched)]
+        p_w_temp = se3.transform_points(
+            se3.se3_inv(last_pose),
+            projection.backproject(cam, last_frame.kp_xy, last_frame.kp_depth))
+        pt_pos = torch.where(ok_last[:, None], state.pt_pos[_clip0(last_matched)],
+                             p_w_temp)
+        matches, n = matching.search_by_projection_last(
+            cam, pose_pred,
+            frame.kp_xy, frame.kp_octave, frame.kp_angle, frame.desc_bits,
+            frame.valid,
+            pt_pos, last_frame.kp_octave, last_frame.kp_angle,
+            last_frame.desc_bits, ok_last,
+            bounds_t, scale_factors, th=th)
+        have = matches >= 0
+        row = _clip0(matches)
+        matched_pt = torch.where(have & ok_last[row], last_matched[row],
+                                 _minus1(matches))
+        return matched_pt, pt_pos[row], have, n
+
+    def track_ref_kf(state: ms.MapState, frame: frame_mod.FrameData, ref_kf):
+        """`Tracking::TrackReferenceKeyFrame` (`src/Tracking.cc:1004-1046`)
+        with exhaustive descriptor matching (ratio 0.7 + rotation) in place
+        of the BoW-node gating, as in the JAX version."""
+        kf_bits = hamming.unpack_bits(state.kf_desc[ref_kf])
+        kf_pts = state.kf_kp_point[ref_kf]
+        kf_ok = state.kf_kp_valid[ref_kf] & (kf_pts >= 0) & state.pt_valid[_clip0(kf_pts)]
+        matches, n = matching.search_by_descriptor(
+            frame.desc_bits, frame.valid, kf_bits, kf_ok,
+            frame.kp_angle, state.kf_kp_angle[ref_kf],
+            th=hamming.TH_LOW, nn_ratio=0.7)
+        matched_pt = torch.where(matches >= 0, kf_pts[_clip0(matches)],
+                                 _minus1(matches))
+        return matched_pt, n
+
+    def _obs(frame, pt_w, valid):
+        return pose_opt.PoseObs(
+            pt_w=pt_w, uv=frame.kp_xy, ur=frame.kp_ur,
+            inv_sigma2=inv_sigma2[_clip0(frame.kp_octave)], valid=valid)
+
+    def optimize_pose(state: ms.MapState, frame: frame_mod.FrameData,
+                      pose0: torch.Tensor, matched_pt: torch.Tensor):
+        """PoseOptimization + outlier stripping (`src/Tracking.cc:1154-1174`)."""
+        ok = (matched_pt >= 0) & state.pt_valid[_clip0(matched_pt)]
+        obs = _obs(frame, state.pt_pos[_clip0(matched_pt)], ok)
+        pose, inlier, n_inl = pose_opt.pose_optimization(cam, pose0, obs)
+        return pose, torch.where(inlier, matched_pt, _minus1(matched_pt)), n_inl
+
+    def optimize_pose_xyz(state: ms.MapState, frame: frame_mod.FrameData,
+                          pose0: torch.Tensor, pt_w: torch.Tensor,
+                          have: torch.Tensor, matched_pt: torch.Tensor):
+        """PoseOptimization over explicit 3D positions (the motion-model
+        variant). Returns (pose, matched_pt stripped of outliers,
+        n_inliers, n_map_inliers)."""
+        pose, inlier, n_inl = pose_opt.pose_optimization(
+            cam, pose0, _obs(frame, pt_w, have))
+        matched_pt = torch.where(inlier, matched_pt, _minus1(matched_pt))
+        n_map = torch.sum((inlier & (matched_pt >= 0)).to(_I32))
+        return pose, matched_pt, n_inl, n_map
+
+    def gather_local_map(state: ms.MapState, matched_pt: torch.Tensor,
+                         pose: torch.Tensor):
+        """`Tracking::UpdateLocalKeyFrames/Points` (`src/Tracking.cc:
+        1455-1599`): vote for KFs observing current points; local map =
+        points of the top-80 voted KFs + the reference KF's top-10
+        covisible KFs, culled to the 1.25x frustum. Returns (local_pt_idx
+        (LOCAL_PTS,), ref_kf)."""
+        K = state.kf_capacity
+        ok = matched_pt >= 0
+        obs_kf = state.pt_obs_kf[_clip0(matched_pt)]  # (N,O)
+        obs_ok = ok[:, None] & (obs_kf >= 0)
+        votes = torch.zeros(K, dtype=_I32, device=state.device)
+        votes = ms.add_rows(votes, obs_kf.reshape(-1), obs_ok.reshape(-1).to(_I32),
+                             obs_ok.reshape(-1))
+        votes = torch.where(state.kf_valid, votes, torch.zeros_like(votes))
+        ref_kf = torch.argmax(votes).to(_I32)
+        top_votes, top_kfs = torch.sort(votes, descending=True, stable=True)
+        top_votes, top_kfs = top_votes[:min(LOCAL_KFS, K)], top_kfs[:min(LOCAL_KFS, K)]
+        neigh = ms.covisible_keyframes(state, ref_kf, 10)
+        sel = torch.cat([torch.where(top_votes > 0, top_kfs.to(_I32),
+                                     _minus1(top_kfs)), neigh])
+        # membership bitmask, built as the JAX version builds it: a MAX
+        # scatter of one bit per selected KF into 32-bit words. A max keeps
+        # one bit per word (the highest set, or none for bit 31, which is
+        # negative in int32) — kept as is for parity.
+        n_words = (K + 31) // 32
+        sel0 = torch.clamp(sel, min=0)
+        bitval = torch.where(sel >= 0, torch.ones_like(sel0) << (sel0 & 31),
+                             torch.zeros_like(sel0))
+        words = torch.zeros(n_words, dtype=_I32, device=state.device).scatter_reduce(
+            0, (sel0 >> 5).long(), bitval, reduce="amax", include_self=True)
+        po = state.pt_obs_kf  # (P,O)
+        po_safe = torch.clamp(po, min=0)
+        bit = torch.zeros_like(po)
+        for w in range(n_words):
+            bit = bit | torch.where((po_safe >> 5) == w,
+                                    (words[w] >> (po_safe & 31)) & 1,
+                                    torch.zeros_like(po))
+        in_local = ((bit > 0) & (po >= 0)).any(-1) & state.pt_valid
+        p_cam = se3.transform_points(pose, state.pt_pos)
+        z = p_cam[:, 2]
+        zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+        u = cam.fx * p_cam[:, 0] / zs + cam.cx
+        v = cam.fy * p_cam[:, 1] / zs + cam.cy
+        in_view = (z > 0) & (u >= view_box[0]) & (u < view_box[1]) \
+            & (v >= view_box[2]) & (v < view_box[3])
+        local_idx = ms.compact_indices(in_local & in_view,
+                                       min(LOCAL_PTS, state.pt_capacity))
+        return local_idx, ref_kf
+
+    def track_local_map(state: ms.MapState, frame: frame_mod.FrameData,
+                        pose: torch.Tensor, matched_pt: torch.Tensor,
+                        local_idx: torch.Tensor, th: float):
+        """`Tracking::SearchLocalPoints` + pose optimization
+        (`src/Tracking.cc:1177-1221,1403-1453`). Returns (state with
+        visible/found counters bumped, pose, matched_pt, n_inliers)."""
+        P = state.pt_capacity
+        lp = _clip0(local_idx)
+        lp_valid = (local_idx >= 0) & state.pt_valid[lp]
+        # skip points already matched in this frame (Tracking.cc:1408-1419).
+        # The JAX version builds this mask with one scatter in which
+        # unmatched rows clamp to slot 0 and write False; XLA applies
+        # duplicate writes in row order, so slot 0 takes the value of the
+        # LAST row that targets it. Reproduced here for parity.
+        matched = matched_pt >= 0
+        already = ms.set_rows(torch.zeros(P, dtype=torch.bool, device=state.device),
+                               matched_pt, torch.ones_like(matched), matched)
+        to0 = matched_pt <= 0
+        n = matched_pt.shape[0]
+        last0 = (n - 1) - torch.argmax(torch.flip(to0, [0]).to(torch.int8))
+        already[0] = torch.where(to0.any(), matched[last0], already[0])
+        lp_valid = lp_valid & ~already[lp]
+        new_matches, _, visible = matching.search_by_projection_points(
+            cam, pose,
+            frame.kp_xy, frame.kp_octave, frame.desc_bits, frame.valid,
+            matched_pt >= 0,
+            state.pt_pos[lp], state.pt_normal[lp], state.pt_min_dist[lp],
+            state.pt_max_dist[lp], hamming.unpack_bits(state.pt_desc[lp]),
+            lp_valid, bounds_t, scale_factors, th=th,
+            n_levels=n_levels, scale_factor=scale_factor)
+        merged = torch.where((new_matches >= 0) & (matched_pt < 0),
+                             local_idx[_clip0(new_matches)], matched_pt)
+        pose2, merged, n_inl = optimize_pose(state, frame, pose, merged)
+        # visibility bookkeeping (MapPoint::IncreaseVisible/Found): as in the
+        # JAX version, rows that are not visible add their 1 to slot P-1
+        vis_idx = torch.where(lp_valid & visible, lp, torch.full_like(lp, P - 1))
+        visible_upd = state.pt_visible.index_add(0, vis_idx, torch.ones_like(vis_idx, dtype=_I32))
+        found_upd = state.pt_found.index_add(0, _clip0(merged),
+                                             (merged >= 0).to(_I32))
+        state = state._replace(pt_visible=visible_upd, pt_found=found_upd)
+        return state, pose2, merged, n_inl
+
+    def create_keyframe_rgbd(state: ms.MapState, frame: frame_mod.FrameData,
+                             pose: torch.Tensor, matched_pt: torch.Tensor,
+                             frame_id: int, close_depth_th: float):
+        """`Tracking::CreateNewKeyFrame` (`src/Tracking.cc:1323-1401`): insert
+        the KF; walk features with depth nearest-first and seed a point for
+        every untracked one; past thDepth stop once 100 points are
+        accounted for."""
+        state, kf = ms.add_keyframe(
+            state, pose, frame.timestamp, frame_id,
+            frame.kp_xy, frame.kp_ur, frame.kp_depth, frame.kp_octave,
+            frame.kp_angle, frame.valid, frame.desc)
+        feat = torch.arange(frame.kp_xy.shape[0], dtype=_I32, device=state.device)
+        has_match = (matched_pt >= 0) & state.pt_valid[_clip0(matched_pt)]
+        state = ms.add_observations(state, kf, matched_pt, feat, has_match)
+        has_depth = frame.valid & (frame.kp_depth > 0)
+        depth_key = torch.where(has_depth, frame.kp_depth,
+                                torch.full_like(frame.kp_depth, float("inf")))
+        order = torch.argsort(depth_key, stable=True)
+        running = torch.cumsum(has_depth[order].to(_I32), 0)
+        before_break = torch.zeros_like(has_depth)
+        before_break[order] = (running <= 100) | (depth_key[order] < close_depth_th)
+        need_new = has_depth & ~has_match & before_break
+        p_cam = projection.backproject(cam, frame.kp_xy, frame.kp_depth)
+        p_world = se3.transform_points(se3.se3_inv(pose), p_cam)
+        state, slots = ms.add_points(state, p_world, frame.desc, kf, kf, need_new)
+        state = ms.add_observations(state, kf, slots, feat, need_new)
+        state = ms.compute_distinctive_descriptors_idx(
+            state, torch.clamp(slots, min=0), slots >= 0)
+        state = ms.update_normal_and_depth_idx(
+            state, torch.clamp(slots, min=0), slots >= 0, scale_factors, n_levels)
+        state = ms.update_connections(state, kf)
+        return state, kf, torch.where(need_new, slots, matched_pt)
+
+    return dict(
+        init_rgbd=init_rgbd,
+        track_motion=track_motion,
+        track_ref_kf=track_ref_kf,
+        optimize_pose=optimize_pose,
+        optimize_pose_xyz=optimize_pose_xyz,
+        gather_local_map=gather_local_map,
+        track_local_map=track_local_map,
+        create_keyframe_rgbd=create_keyframe_rgbd,
+    )
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    min_frames: int = 0  # Tracking.cc:163-174
+    max_frames: int = 30  # = fps
+    th_depth: float = 3.0  # meters (bf/fx * ThDepth)
+    min_init_features: int = 500  # Tracking.cc:752
+    motion_th: float = 15.0  # RGBD/mono window (Tracking.cc:1127)
+    local_th: float = 3.0  # RGBD local search (Tracking.cc:1447)
+
+
+class Tracker:
+    """Host driver over the per-frame step (the Tracking thread's member
+    state, `include/Tracking.h:85-228`). Each frame: build, step, read the
+    outcome; while LOST, retry reference-KF tracking every frame."""
+
+    def __init__(self, cam: projection.Camera, builder: frame_mod.FrameBuilder,
+                 state: ms.MapState, cfg: TrackerConfig,
+                 n_levels: int = 4, scale_factor: float = 1.5):
+        from . import fused_step
+
+        self.cam = cam
+        self.builder = builder
+        self.map = state
+        self.cfg = cfg
+        self.k = make_tracking_kernels(cam, builder, n_levels, scale_factor)
+        self.step = fused_step.make_fused_step(cam, builder, n_levels,
+                                               scale_factor, cfg)
+        self.ctrl: fused_step.ControlState | None = None
+        self.state = NO_IMAGES_YET
+        self.ref_kf = 0  # reference KF of the LOST-mode retry (as in JAX)
+        self.relocalizer = None  # relocalization is a later slice
+        # device timestamps are f32 OFFSETS from this f64 epoch (the first
+        # frame's stamp); exports add it back
+        self.ts_epoch: float | None = None
+        self._trajectory: list[tuple[float, np.ndarray, bool]] = []
+        self.needs_reset = False  # lost-after-init ladder (Tracking.cc:712-718)
+        self.n_pt_watermark = 0
+        self.n_kf_watermark = 0
+
+    @property
+    def trajectory(self) -> list[tuple[float, np.ndarray, bool]]:
+        return self._trajectory
+
+    def _dev_ts(self, timestamp: float) -> float:
+        """f32-safe device timestamp: offset from the run's f64 epoch."""
+        if self.ts_epoch is None:
+            self.ts_epoch = float(timestamp)
+        return float(timestamp) - self.ts_epoch
+
+    def _record(self, out, t: float):
+        """Host view of one step's outcome (the JAX version's batched
+        `flush`, one frame at a time)."""
+        from . import fused_step
+
+        lost = out.mode != fused_step.MODE_OK
+        self._trajectory.append((t, out.pose.cpu().numpy(), lost))
+        self.n_pt_watermark = out.n_pt
+        self.n_kf_watermark = out.n_kf_alloc
+        self.state = {1: NOT_INITIALIZED, 2: OK, 3: LOST}.get(out.mode, out.mode)
+        if self.state == LOST and out.n_kf <= 5:
+            self.needs_reset = True
+
+    def _relocalize(self, fr: frame_mod.FrameData):
+        """While LOST: retry reference-KF matching against the last
+        reference keyframe (the JAX Tracker's fallback when it has no
+        relocalizer, `tracking.py:587-601`)."""
+        from . import fused_step
+
+        pose = None
+        matched, n = self.k["track_ref_kf"](self.map, fr, self.ref_kf)
+        if int(n) >= 15:
+            p2, matched, n_inl = self.k["optimize_pose"](
+                self.map, fr, self.ctrl.pose, matched)
+            if int(n_inl) >= 10:
+                pose = p2
+        if pose is not None:
+            self.ctrl = self.ctrl._replace(
+                mode=fused_step.MODE_OK, pose=pose, has_velocity=False,
+                last_matched=matched.to(_I32))
+            self.state = OK
+
+    def track_rgbd(self, image, depth, timestamp: float):
+        """Per-frame entry (`GrabImageRGBD`, `src/Tracking.cc:300-360`);
+        returns the frame's Tcw (4,4) numpy pose (identity while lost)."""
+        from . import fused_step
+
+        t_dev = self._dev_ts(timestamp)
+        fr = self.builder.build(image, t_dev, depth)
+        if self.ctrl is None:
+            self.ctrl = fused_step.initial_control_state(fr)
+        self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
+        self._record(out, float(timestamp))
+        if self.state == LOST:
+            self._relocalize(fr)
+        return self._trajectory[-1][1]

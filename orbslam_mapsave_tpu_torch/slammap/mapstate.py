@@ -1,0 +1,472 @@
+"""Fixed-capacity structure-of-arrays SLAM map state.
+
+Port of `orbslam_mapsave_tpu/slammap/mapstate.py` (the subset the RGB-D
+tracking path uses): the reference's pointer-graph map (`Map` + `KeyFrame`
++ `MapPoint`) as ONE NamedTuple of padded tensors with validity masks.
+Object identity = array slot. Updates are functional — every function
+returns a new MapState and leaves its input untouched, as in the JAX
+version — so callers can keep or drop a candidate state on the host.
+
+Scatters: the JAX version routes dead rows to an out-of-range index with
+`mode="drop"`. Here `set_rows` does the same explicitly: it writes into a
+copy with one spare row, sends masked rows there, and cuts it off. No
+index ever wraps around.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry import se3
+
+MAX_OBS = 32  # per-point observation capacity
+MAX_LOOP_EDGES = 8
+COVIS_MIN_WEIGHT = 15  # KeyFrame.cc:1051
+
+
+class MapState(NamedTuple):
+    # --- keyframes ---
+    kf_pose: torch.Tensor  # (K,4,4) f32 Tcw
+    kf_valid: torch.Tensor  # (K,) bool
+    kf_timestamp: torch.Tensor  # (K,) f32 offset from the run's f64 epoch
+    kf_frame_id: torch.Tensor  # (K,) i32
+    kf_kp_xy: torch.Tensor  # (K,N,2) f32 undistorted
+    kf_kp_ur: torch.Tensor  # (K,N) f32, <0 = mono
+    kf_kp_depth: torch.Tensor  # (K,N) f32, <=0 = none
+    kf_kp_octave: torch.Tensor  # (K,N) i32
+    kf_kp_angle: torch.Tensor  # (K,N) f32 degrees
+    kf_kp_valid: torch.Tensor  # (K,N) bool
+    kf_desc: torch.Tensor  # (K,N,32) u8
+    kf_kp_point: torch.Tensor  # (K,N) i32 point slot or -1
+    # --- map points ---
+    pt_pos: torch.Tensor  # (P,3) f32
+    pt_valid: torch.Tensor  # (P,) bool
+    pt_desc: torch.Tensor  # (P,32) u8
+    pt_normal: torch.Tensor  # (P,3) f32
+    pt_min_dist: torch.Tensor  # (P,) f32
+    pt_max_dist: torch.Tensor  # (P,) f32
+    pt_ref_kf: torch.Tensor  # (P,) i32
+    pt_first_kf: torch.Tensor  # (P,) i32
+    pt_visible: torch.Tensor  # (P,) i32
+    pt_found: torch.Tensor  # (P,) i32
+    pt_obs_kf: torch.Tensor  # (P,MAX_OBS) i32, -1 pad
+    pt_obs_idx: torch.Tensor  # (P,MAX_OBS) i32
+    pt_obs_oct: torch.Tensor  # (P,MAX_OBS) i8, -1 pad
+    # --- graph ---
+    covis: torch.Tensor  # (K,K) i32
+    kf_parent: torch.Tensor  # (K,) i32
+    kf_loop_edges: torch.Tensor  # (K,MAX_LOOP_EDGES) i32
+    # --- counters (0-dim i32) ---
+    n_kf: torch.Tensor
+    n_pt: torch.Tensor
+    n_obs_dropped: torch.Tensor
+
+    @property
+    def kf_capacity(self) -> int:
+        return self.kf_pose.shape[0]
+
+    @property
+    def pt_capacity(self) -> int:
+        return self.pt_pos.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.kf_kp_xy.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.kf_pose.device
+
+
+def empty_map(max_keyframes: int, max_points: int, n_features: int,
+              device="cpu") -> MapState:
+    K, P, N = max_keyframes, max_points, n_features
+    host = dict(
+        kf_pose=np.tile(np.eye(4, dtype=np.float32), (K, 1, 1)),
+        kf_valid=np.zeros(K, bool),
+        kf_timestamp=np.zeros(K, np.float32),
+        kf_frame_id=np.zeros(K, np.int32),
+        kf_kp_xy=np.zeros((K, N, 2), np.float32),
+        kf_kp_ur=np.full((K, N), -1.0, np.float32),
+        kf_kp_depth=np.zeros((K, N), np.float32),
+        kf_kp_octave=np.zeros((K, N), np.int32),
+        kf_kp_angle=np.zeros((K, N), np.float32),
+        kf_kp_valid=np.zeros((K, N), bool),
+        kf_desc=np.zeros((K, N, 32), np.uint8),
+        kf_kp_point=np.full((K, N), -1, np.int32),
+        pt_pos=np.zeros((P, 3), np.float32),
+        pt_valid=np.zeros(P, bool),
+        pt_desc=np.zeros((P, 32), np.uint8),
+        pt_normal=np.zeros((P, 3), np.float32),
+        pt_min_dist=np.zeros(P, np.float32),
+        pt_max_dist=np.zeros(P, np.float32),
+        pt_ref_kf=np.full(P, -1, np.int32),
+        pt_first_kf=np.full(P, -1, np.int32),
+        pt_visible=np.ones(P, np.int32),
+        pt_found=np.ones(P, np.int32),
+        pt_obs_kf=np.full((P, MAX_OBS), -1, np.int32),
+        pt_obs_idx=np.full((P, MAX_OBS), -1, np.int32),
+        pt_obs_oct=np.full((P, MAX_OBS), -1, np.int8),
+        covis=np.zeros((K, K), np.int32),
+        kf_parent=np.full(K, -1, np.int32),
+        kf_loop_edges=np.full((K, MAX_LOOP_EDGES), -1, np.int32),
+        n_kf=np.int32(0),
+        n_pt=np.int32(0),
+        n_obs_dropped=np.int32(0),
+    )
+    return MapState(**{k: torch.as_tensor(v).to(device) for k, v in host.items()})
+
+
+def set_rows(arr: torch.Tensor, idx: torch.Tensor, vals, ok: torch.Tensor,
+             lane: torch.Tensor | None = None) -> torch.Tensor:
+    """Copy of `arr` with arr[idx[i]] (or arr[idx[i], lane[i]]) = vals[i]
+    where ok[i]; rows with ok False are dropped (JAX `mode="drop"`). Live
+    (idx, lane) pairs must be unique."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    row = torch.where(ok, idx, torch.full_like(idx, n)).long()
+    if not torch.is_tensor(vals):
+        vals = torch.tensor(vals, dtype=arr.dtype, device=arr.device)
+    if lane is None:
+        ext[row] = vals.to(arr.dtype)
+    else:
+        ext[row, lane.long()] = vals.to(arr.dtype)
+    return ext[:n]
+
+
+def add_rows(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+             ok: torch.Tensor) -> torch.Tensor:
+    """Copy of `arr` with vals[i] added at arr[idx[i]] where ok[i]
+    (duplicates accumulate; masked rows are dropped)."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    row = torch.where(ok, idx, torch.full_like(idx, n)).long()
+    return ext.index_add(0, row, vals.to(arr.dtype))[:n]
+
+
+# ---------------------------------------------------------------------------
+# Keyframe / point allocation
+# ---------------------------------------------------------------------------
+
+
+def add_keyframe(state: MapState, pose_cw, timestamp, frame_id,
+                 kp_xy, kp_ur, kp_depth, kp_octave, kp_angle, kp_valid, desc,
+                 kp_point=None) -> tuple[MapState, int]:
+    """Append a keyframe at slot n_kf; returns (state, slot) —
+    `Tracking::CreateNewKeyFrame` + `Map::AddKeyFrame`. Capacity overflow is
+    the caller's responsibility."""
+    k = int(state.n_kf)
+    if kp_point is None:
+        kp_point = torch.full((state.n_features,), -1, dtype=torch.int32,
+                              device=state.device)
+
+    def put(arr, val):
+        out = arr.clone()
+        out[k] = torch.as_tensor(val, device=out.device).to(arr.dtype)
+        return out
+
+    state = state._replace(
+        kf_pose=put(state.kf_pose, pose_cw),
+        kf_valid=put(state.kf_valid, True),
+        kf_timestamp=put(state.kf_timestamp, timestamp),
+        kf_frame_id=put(state.kf_frame_id, frame_id),
+        kf_kp_xy=put(state.kf_kp_xy, kp_xy),
+        kf_kp_ur=put(state.kf_kp_ur, kp_ur),
+        kf_kp_depth=put(state.kf_kp_depth, kp_depth),
+        kf_kp_octave=put(state.kf_kp_octave, kp_octave),
+        kf_kp_angle=put(state.kf_kp_angle, kp_angle),
+        kf_kp_valid=put(state.kf_kp_valid, kp_valid),
+        kf_desc=put(state.kf_desc, desc),
+        kf_kp_point=put(state.kf_kp_point, kp_point),
+        n_kf=state.n_kf + 1,
+    )
+    return state, k
+
+
+def add_points(state: MapState, pos: torch.Tensor, desc: torch.Tensor,
+               ref_kf, first_kf, valid_mask: torch.Tensor,
+               normal=None, min_dist=None, max_dist=None
+               ) -> tuple[MapState, torch.Tensor]:
+    """Bulk-append B candidate points; masked rows are skipped. Slots are
+    allocated compactly from n_pt by a prefix sum. Returns (state, slots
+    (B,) i32, -1 where masked out or past capacity)."""
+    B = pos.shape[0]
+    dev = pos.device
+    i32 = torch.int32
+    offs = torch.cumsum(valid_mask.to(i32), 0).to(i32) - 1
+    minus1 = torch.full((B,), -1, dtype=i32, device=dev)
+    slots = torch.where(valid_mask, state.n_pt + offs, minus1)
+    cap = state.pt_capacity
+    slots = torch.where(slots < cap, slots, minus1)
+    ok = slots >= 0
+
+    def scat(arr, vals):
+        return set_rows(arr, slots, vals, ok)
+
+    ref_kf = torch.as_tensor(ref_kf, dtype=i32, device=dev).expand(B)
+    first_kf = torch.as_tensor(first_kf, dtype=i32, device=dev).expand(B)
+    if normal is None:
+        normal = torch.zeros((B, 3), dtype=pos.dtype, device=dev)
+    if min_dist is None:
+        min_dist = torch.zeros(B, dtype=pos.dtype, device=dev)
+    if max_dist is None:
+        max_dist = torch.full((B,), float("inf"), dtype=pos.dtype, device=dev)
+    ones_i = torch.ones(B, dtype=i32, device=dev)
+    lanes = torch.full((B, MAX_OBS), -1, dtype=i32, device=dev)
+    state = state._replace(
+        pt_pos=scat(state.pt_pos, pos),
+        pt_valid=scat(state.pt_valid, torch.ones(B, dtype=torch.bool, device=dev)),
+        pt_desc=scat(state.pt_desc, desc),
+        pt_normal=scat(state.pt_normal, normal),
+        pt_min_dist=scat(state.pt_min_dist, min_dist),
+        pt_max_dist=scat(state.pt_max_dist, max_dist),
+        pt_ref_kf=scat(state.pt_ref_kf, ref_kf),
+        pt_first_kf=scat(state.pt_first_kf, first_kf),
+        pt_visible=scat(state.pt_visible, ones_i),
+        pt_found=scat(state.pt_found, ones_i),
+        pt_obs_kf=scat(state.pt_obs_kf, lanes),
+        pt_obs_idx=scat(state.pt_obs_idx, lanes),
+        pt_obs_oct=scat(state.pt_obs_oct, lanes.to(torch.int8)),
+        n_pt=torch.clamp(state.n_pt + torch.sum(valid_mask.to(i32)), max=cap).to(i32),
+    )
+    return state, slots
+
+
+def add_observations(state: MapState, kf_slot: int, pt_slots: torch.Tensor,
+                     feat_idx: torch.Tensor, ok: torch.Tensor) -> MapState:
+    """Register point<->keyframe observations for a batch of features.
+
+    Forward: kf_kp_point[kf, feat] = pt. Reverse: first free lane of
+    pt_obs_kf[pt] (`MapPoint::AddObservation` + `KeyFrame::AddMapPoint`).
+    pt_slots must be unique within a call; a point with no free lane is
+    counted in n_obs_dropped."""
+    P = state.pt_capacity
+    ok = ok & (pt_slots >= 0)
+    safe_pt = torch.where(ok, pt_slots, torch.full_like(pt_slots, P - 1)).long()
+    safe_ft = torch.where(ok, feat_idx, torch.full_like(feat_idx, state.n_features - 1)).long()
+    new_fwd = set_rows(state.kf_kp_point[kf_slot], feat_idx, pt_slots, ok)
+    kf_kp_point = state.kf_kp_point.clone()
+    kf_kp_point[kf_slot] = new_fwd
+    obs_rows = state.pt_obs_kf[safe_pt]  # (B,MAX_OBS)
+    free = obs_rows < 0
+    free_lane = torch.argmax(free.to(torch.int8), dim=-1)
+    has_free = free.any(dim=-1)
+    okf = ok & has_free
+    kf_col = torch.full_like(pt_slots, int(kf_slot))
+    oct_b = state.kf_kp_octave[kf_slot][safe_ft].to(torch.int8)
+    dropped = torch.sum((ok & ~has_free).to(torch.int32))
+    return state._replace(
+        kf_kp_point=kf_kp_point,
+        pt_obs_kf=set_rows(state.pt_obs_kf, pt_slots, kf_col, okf, free_lane),
+        pt_obs_idx=set_rows(state.pt_obs_idx, pt_slots, feat_idx, okf, free_lane),
+        pt_obs_oct=set_rows(state.pt_obs_oct, pt_slots, oct_b, okf, free_lane),
+        n_obs_dropped=(state.n_obs_dropped + dropped).to(torch.int32),
+    )
+
+
+def compact_indices(flag: torch.Tensor, cap: int) -> torch.Tensor:
+    """Indices of nonzero flags compacted into (cap,) ascending, -1 pad;
+    flags past the first `cap` set bits are dropped."""
+    n = flag.shape[0]
+    f = (flag > 0).to(torch.int32)
+    pos = torch.cumsum(f, 0).to(torch.int32) - f
+    ok = (f > 0) & (pos < cap)
+    out = torch.full((cap,), -1, dtype=torch.int32, device=flag.device)
+    return set_rows(out, pos, torch.arange(n, dtype=torch.int32,
+                                            device=flag.device), ok)
+
+
+def update_connections(state: MapState, kf_slot: int) -> MapState:
+    """Recompute the covisibility row/col of one KF + spanning-tree attach
+    (`KeyFrame::UpdateConnections`, `src/KeyFrame.cc:1010-1100`): edges with
+    weight >= 15, always the single best edge; on first connection,
+    parent = top covisible KF."""
+    K = state.kf_capacity
+    pts = state.kf_kp_point[kf_slot]
+    ok = pts >= 0
+    safe = torch.where(ok, pts, torch.full_like(pts, state.pt_capacity - 1)).long()
+    obs_kf = state.pt_obs_kf[safe]  # (N,MAX_OBS)
+    obs_ok = ok[:, None] & (obs_kf >= 0)
+    counts = torch.zeros(K, dtype=torch.int32, device=state.device)
+    counts = add_rows(counts, obs_kf.reshape(-1),
+                       torch.ones_like(obs_kf.reshape(-1)), obs_ok.reshape(-1))
+    counts[kf_slot] = 0
+    counts = torch.where(state.kf_valid, counts, torch.zeros_like(counts))
+    best = torch.amax(counts)
+    best_kf = torch.argmax(counts)
+    row = torch.where(counts >= COVIS_MIN_WEIGHT, counts, torch.zeros_like(counts))
+    row[best_kf] = torch.where(best > 0, best, torch.zeros_like(best))
+    covis = state.covis.clone()
+    covis[kf_slot, :] = row
+    covis[:, kf_slot] = row
+    cur_parent = state.kf_parent[kf_slot]
+    need_parent = (cur_parent < 0) & (kf_slot != 0) & (best > 0)
+    kf_parent = state.kf_parent.clone()
+    kf_parent[kf_slot] = torch.where(need_parent, best_kf.to(torch.int32), cur_parent)
+    return state._replace(covis=covis, kf_parent=kf_parent)
+
+
+def covisible_keyframes(state: MapState, kf_slot, top_n: int) -> torch.Tensor:
+    """Top-N covisible KF slots by weight (-1 padded), lowest slot first
+    among equal weights (`KeyFrame::GetBestCovisibilityKeyFrames`)."""
+    w = state.covis[kf_slot]
+    vals, idx = torch.sort(w, descending=True, stable=True)
+    vals, idx = vals[:top_n], idx[:top_n].to(torch.int32)
+    return torch.where(vals > 0, idx, torch.full_like(idx, -1))
+
+
+def _distinctive_descriptors_rows(obs_kf, obs_idx, kf_desc):
+    """Min-median-Hamming descriptor for B points given their (B,O)
+    observation rows. Returns (desc (B,32), has_obs (B,))."""
+    B, O = obs_kf.shape
+    ok = obs_kf >= 0
+    descs = kf_desc[torch.clamp(obs_kf, min=0).long(),
+                    torch.clamp(obs_idx, min=0).long()]  # (B,O,32)
+    shifts = torch.arange(8, dtype=torch.uint8, device=descs.device)
+    bits = ((descs[..., None] >> shifts) & 1).reshape(B, O, 256).to(torch.float32)
+    pop = torch.sum(bits, -1).to(torch.int32)
+    dot = torch.bmm(bits, bits.transpose(1, 2)).to(torch.int32)  # exact ints
+    dist = pop[:, :, None] + pop[:, None, :] - 2 * dot
+    big = 1 << 20
+    dist = torch.where(ok[:, None, :] & ok[:, :, None], dist, torch.full_like(dist, big))
+    cnt = torch.sum(ok.to(torch.int32), -1)
+    sdist = torch.sort(dist, dim=-1).values
+    mid = torch.clamp((cnt - 1) // 2, min=0)[:, None, None].expand(B, O, 1).long()
+    med = torch.gather(sdist, -1, mid)[..., 0]
+    med = torch.where(ok, med, torch.full_like(med, big))
+    best = torch.argmin(med, dim=-1)
+    new_desc = descs[torch.arange(B, device=descs.device), best]
+    return new_desc, cnt > 0
+
+
+def compute_distinctive_descriptors_idx(state: MapState, idx: torch.Tensor,
+                                        idx_ok: torch.Tensor) -> MapState:
+    """`MapPoint::ComputeDistinctiveDescriptors` for the B point slots in
+    `idx` (masked by idx_ok; idx unique)."""
+    P = state.pt_capacity
+    safe = torch.where(idx_ok, idx, torch.full_like(idx, P - 1)).long()
+    obs_kf = torch.where(idx_ok[:, None], state.pt_obs_kf[safe],
+                         torch.full_like(state.pt_obs_kf[safe], -1))
+    new_desc, has = _distinctive_descriptors_rows(
+        obs_kf, state.pt_obs_idx[safe], state.kf_desc)
+    return state._replace(
+        pt_desc=set_rows(state.pt_desc, idx, new_desc, idx_ok & has))
+
+
+def _normal_and_depth_rows(pt_pos, pt_ref_kf, obs_kf, obs_idx, kf_pose,
+                           kf_kp_octave, scale_factors, n_levels: int):
+    """Normal + distance band for B points given their (B,O) observation
+    rows. Returns (normal (B,3), min_d (B,), max_d (B,), has_obs (B,))."""
+    sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=pt_pos.device)
+    B, O = obs_kf.shape
+    ok = obs_kf >= 0
+    centers = se3.se3_inv(kf_pose)[:, :3, 3]  # (K,3)
+    cams = centers[torch.clamp(obs_kf, min=0).long()]  # (B,O,3)
+    diff = pt_pos[:, None, :] - cams
+    norm = torch.clamp(torch.linalg.vector_norm(diff, dim=-1, keepdim=True), min=1e-12)
+    units = diff / norm
+    cnt = torch.clamp(torch.sum(ok.to(torch.int32), -1), min=1)
+    normal = torch.sum(torch.where(ok[:, None], units.transpose(1, 2),
+                                   torch.zeros_like(units.transpose(1, 2))), -1) \
+        / cnt[:, None]
+    ref = torch.clamp(pt_ref_kf, min=0).long()
+    dist = torch.linalg.vector_norm(pt_pos - centers[ref], dim=-1)
+    is_ref = obs_kf == pt_ref_kf[:, None]
+    lane = torch.argmax(is_ref.to(torch.int8), dim=-1)
+    has_ref = is_ref.any(dim=-1)
+    fidx = torch.where(has_ref, obs_idx[torch.arange(B, device=obs_idx.device), lane],
+                       torch.zeros_like(lane, dtype=obs_idx.dtype))
+    octv = kf_kp_octave[ref, torch.clamp(fidx, min=0).long()]
+    level_factor = sf[torch.clamp(octv, 0, n_levels - 1).long()]
+    max_d = dist * level_factor
+    min_d = max_d / sf[n_levels - 1]
+    return normal, min_d, max_d, torch.sum(ok.to(torch.int32), -1) > 0
+
+
+def update_normal_and_depth_idx(state: MapState, idx: torch.Tensor,
+                                idx_ok: torch.Tensor, scale_factors,
+                                n_levels: int) -> MapState:
+    """`MapPoint::UpdateNormalAndDepth` over the B point slots in `idx`:
+    normal = mean unit vector point->camera centre over observations;
+    max = dist * scale^octave at the reference KF, min = max / scale^(L-1)."""
+    P = state.pt_capacity
+    safe = torch.where(idx_ok, idx, torch.full_like(idx, P - 1)).long()
+    obs_kf = torch.where(idx_ok[:, None], state.pt_obs_kf[safe],
+                         torch.full_like(state.pt_obs_kf[safe], -1))
+    normal, min_d, max_d, has = _normal_and_depth_rows(
+        state.pt_pos[safe], state.pt_ref_kf[safe], obs_kf,
+        state.pt_obs_idx[safe], state.kf_pose, state.kf_kp_octave,
+        scale_factors, n_levels)
+    upd = idx_ok & has
+    return state._replace(
+        pt_normal=set_rows(state.pt_normal, idx, normal, upd),
+        pt_max_dist=set_rows(state.pt_max_dist, idx, max_d, upd),
+        pt_min_dist=set_rows(state.pt_min_dist, idx, min_d, upd),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Slot recycling: renumber live slots into a dense prefix (order kept).
+# ---------------------------------------------------------------------------
+
+
+def _valid_first_order(valid: torch.Tensor) -> torch.Tensor:
+    return torch.argsort((~valid).to(torch.int8), stable=True)
+
+
+def compact_points(state: MapState) -> tuple[MapState, torch.Tensor]:
+    """Renumber valid points into a dense prefix. Returns (state,
+    new_of_old (P,) i32, -1 for dead slots)."""
+    valid = state.pt_valid
+    i32 = torch.int32
+    new_of_old = torch.where(valid, torch.cumsum(valid.to(i32), 0).to(i32) - 1,
+                             torch.full_like(state.pt_ref_kf, -1))
+    order = _valid_first_order(valid)
+    fwd = state.kf_kp_point
+    fwd = torch.where(fwd >= 0, new_of_old[torch.clamp(fwd, min=0).long()], fwd)
+    v2 = valid[order]
+    state = state._replace(
+        pt_pos=state.pt_pos[order], pt_valid=v2, pt_desc=state.pt_desc[order],
+        pt_normal=state.pt_normal[order], pt_min_dist=state.pt_min_dist[order],
+        pt_max_dist=state.pt_max_dist[order],
+        pt_ref_kf=torch.where(v2, state.pt_ref_kf[order],
+                              torch.full_like(state.pt_ref_kf, -1)),
+        pt_first_kf=state.pt_first_kf[order], pt_visible=state.pt_visible[order],
+        pt_found=state.pt_found[order], pt_obs_kf=state.pt_obs_kf[order],
+        pt_obs_idx=state.pt_obs_idx[order], pt_obs_oct=state.pt_obs_oct[order],
+        kf_kp_point=fwd, n_pt=torch.sum(valid.to(i32)).to(i32),
+    )
+    return state, new_of_old
+
+
+def compact_keyframes(state: MapState) -> tuple[MapState, torch.Tensor]:
+    """Renumber valid keyframes into a dense prefix (slot order kept).
+    Returns (state, new_of_old (K,) i32)."""
+    valid = state.kf_valid
+    i32 = torch.int32
+    new_of_old = torch.where(valid, torch.cumsum(valid.to(i32), 0).to(i32) - 1,
+                             torch.full_like(state.kf_parent, -1))
+    order = _valid_first_order(valid)
+
+    def remap(ids):
+        return torch.where(ids >= 0, new_of_old[torch.clamp(ids, min=0).long()], ids)
+
+    v2 = valid[order]
+    covis = state.covis[order][:, order]
+    covis = torch.where(v2[:, None] & v2[None, :], covis, torch.zeros_like(covis))
+    state = state._replace(
+        kf_pose=state.kf_pose[order], kf_valid=v2,
+        kf_timestamp=state.kf_timestamp[order], kf_frame_id=state.kf_frame_id[order],
+        kf_kp_xy=state.kf_kp_xy[order], kf_kp_ur=state.kf_kp_ur[order],
+        kf_kp_depth=state.kf_kp_depth[order], kf_kp_octave=state.kf_kp_octave[order],
+        kf_kp_angle=state.kf_kp_angle[order], kf_kp_valid=state.kf_kp_valid[order],
+        kf_desc=state.kf_desc[order], kf_kp_point=state.kf_kp_point[order],
+        covis=covis, kf_parent=remap(state.kf_parent[order]),
+        kf_loop_edges=remap(state.kf_loop_edges[order]),
+        pt_obs_kf=remap(state.pt_obs_kf), pt_ref_kf=remap(state.pt_ref_kf),
+        pt_first_kf=remap(state.pt_first_kf), n_kf=torch.sum(valid.to(i32)).to(i32),
+    )
+    return state, new_of_old

@@ -1,0 +1,81 @@
+"""The pose-LM CUDA kernel against its plain PyTorch version, on the card.
+
+Needs an NVIDIA GPU with nvcc (the kernel is built from csrc/pose_lm.cu at
+first use); skipped elsewhere. On the card:
+    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
+`chip_smoke.py` runs the same comparison at the slice's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
+                                                          make_problem)
+
+pytestmark = pytest.mark.cuda
+
+TOL_POSE = 1e-4  # f32 sums in another order (block tree vs torch einsum)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _plain(obs, pose0, b):
+    return pose_opt.pose_optimization_ref(
+        CAM, pose0[b], pose_opt.PoseObs(*[x[b] for x in obs]))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("M", [900, 1024, 2048])
+def test_kernel_matches_plain(dev, M, B):
+    probs = [make_problem(M, seed=7 + b) for b in range(B)]
+    obs = batch_obs(probs, dev)
+    pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+    pose_k, inl_k, n_k = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    pose_k2, inl_k2, _ = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    torch.cuda.synchronize()
+    assert torch.equal(pose_k, pose_k2) and torch.equal(inl_k, inl_k2)
+    for b in range(B):
+        p_ref, inl_ref, n_ref = _plain(obs, pose0, b)
+        err = (pose_k[b] - p_ref).abs().max().item()
+        assert err <= TOL_POSE, (M, B, b, err)
+        assert torch.equal(inl_k[b], inl_ref)
+        assert int(n_k[b]) == int(n_ref)
+        assert np.abs(pose_k[b].cpu().numpy() - probs[b]["T_true"]).max() < 5e-3
+
+
+def test_all_invalid_returns_input_pose(dev):
+    p = make_problem(1024, seed=3)
+    p["valid"][:] = False
+    obs = batch_obs([p], dev)
+    pose0 = torch.eye(4, device=dev)[None].contiguous()
+    pose, inl, n = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    assert torch.equal(pose, pose0)
+    assert int(n[0]) == 0 and not bool(inl.any())
+
+
+def test_dispatcher_launches_kernel(dev):
+    obs = batch_obs([make_problem(2048)], dev)
+    pose_opt_cuda.reset_launches()
+    pose, inl, n = pose_opt.pose_optimization(
+        CAM, torch.eye(4, device=dev), pose_opt.PoseObs(*[x[0] for x in obs]))
+    torch.cuda.synchronize()
+    assert pose_opt_cuda.launches == 1
+    assert pose.shape == (4, 4) and inl.shape == (2048,) and int(n) > 1500
+
+
+def test_wrapper_rejects_bad_inputs(dev):
+    data = torch.zeros(1, 8, 64, device=dev)
+    with pytest.raises(ValueError):
+        pose_opt_cuda.pose_lm_raw(CAM, data.cpu(), torch.zeros(1, 12))
+    with pytest.raises(TypeError):
+        pose_opt_cuda.pose_lm_raw(CAM, data.double(),
+                                  torch.zeros(1, 12, device=dev))
+    with pytest.raises(ValueError):
+        pose_opt_cuda.pose_lm_raw(CAM, data, torch.zeros(2, 12, device=dev))

@@ -1,0 +1,56 @@
+"""The port never reaches for jax or the JAX package: in a fresh process
+where both are unimportable, import every module of
+orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["orbslam_mapsave_tpu"] = None
+import importlib, pkgutil
+import numpy as np
+import orbslam_mapsave_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from orbslam_mapsave_tpu_torch import config
+from orbslam_mapsave_tpu_torch.io import synthetic
+from orbslam_mapsave_tpu_torch.pipeline import system
+W, H = 320, 240
+K = np.array([[200.0, 0, W / 2], [0, 200.0, H / 2], [0, 0, 1.0]])
+gray, depth = synthetic.BoxRoom(seed=5).render(K, synthetic.orbit_trajectory(2)[0], W, H)
+cfg = config.SystemConfig()
+cfg.camera = config.CameraConfig(fx=200.0, fy=200.0, cx=W / 2, cy=H / 2,
+                                 width=W, height=H, bf=16.0, th_depth=50.0)
+cfg.orb = config.ORBConfig(n_features=600, n_levels=4, scale_factor=1.5)
+cfg.max_keypoints, cfg.max_keyframes, cfg.max_points = 768, 8, 4096
+slam = system.SLAMSystem(cfg, system.Sensor.RGBD, enable_mapping=False, device="cpu")
+pose = slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
+assert pose.shape == (4, 4) and slam.n_keyframes == 1 and slam.n_points > 300
+assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK", len(names), slam.n_points)
+"""
+
+
+def test_port_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")
+
+
+def test_sources_name_no_jax():
+    pkg = ROOT / "orbslam_mapsave_tpu_torch"
+    for f in pkg.rglob("*.py"):
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax")), f
+            assert not s.startswith(("import orbslam_mapsave_tpu.",
+                                     "from orbslam_mapsave_tpu.",
+                                     "from orbslam_mapsave_tpu import")), f

@@ -1,0 +1,188 @@
+"""The RGB-D tracking slice end to end: `SLAMSystem(cfg, RGBD,
+enable_mapping=False)` with no vocabulary, in the JAX package and in the
+port, on the sequence of `test_rgbd_slam.py` (320x240, 10 frames, 600 ORB
+features, 32 keyframe / 8192 point capacity). Frame by frame: the same
+lost flags, the same keyframe frames, the same point count, poses within
+1e-4."""
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam_mapsave_tpu import config as jcfg
+from orbslam_mapsave_tpu.pipeline import system as jsys
+from orbslam_mapsave_tpu_torch import config as tcfg
+from orbslam_mapsave_tpu_torch import interop
+from orbslam_mapsave_tpu_torch.io import dataset, synthetic, trajectory
+from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
+from orbslam_mapsave_tpu_torch.pipeline import system as tsys
+
+torch.set_num_threads(2)
+W, H = 320, 240
+FX = 200.0
+
+
+@pytest.fixture(scope="module")
+def seq(tmp_path_factory):
+    out = tmp_path_factory.mktemp("rgbd_seq_torch")
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    poses = synthetic.orbit_trajectory(10, radius=0.4, yaw_range=0.4)
+    synthetic.write_tum_sequence(out, K, poses, width=W, height=H, seed=5,
+                                 depth_factor=5000.0)
+    return {"root": out, "poses": poses}
+
+
+def _system(cfg_mod, sys_mod, max_points=8192, **kw):
+    cfg = cfg_mod.SystemConfig()
+    cfg.camera = cfg_mod.CameraConfig(
+        fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H,
+        bf=FX * 0.08, th_depth=50.0, depth_map_factor=5000.0, fps=30)
+    cfg.orb = cfg_mod.ORBConfig(n_features=600, n_levels=4, scale_factor=1.5)
+    cfg.max_keypoints = 768
+    cfg.max_keyframes = 32
+    cfg.max_points = max_points
+    return sys_mod.SLAMSystem(cfg, sys_mod.Sensor.RGBD, vocabulary=None,
+                              enable_loop_closing=False, enable_mapping=False,
+                              **kw)
+
+
+@pytest.fixture(scope="module")
+def runs(seq):
+    js = _system(jcfg, jsys)
+    ts = _system(tcfg, tsys, device="cpu")
+    rows = []
+    for t, gray, depth in dataset.TUMDataset(seq["root"], depth_factor=5000.0):
+        js.track_rgbd(gray, depth, t)
+        js.tracker.flush()
+        ts.track_rgbd(gray, depth, t)
+        rows.append(dict(j=js.tracker.trajectory[-1], t=ts.tracker.trajectory[-1],
+                         jn=(js.n_keyframes, js.n_points),
+                         tn=(ts.n_keyframes, ts.n_points)))
+    return js, ts, rows
+
+
+def test_frame_by_frame(runs):
+    _, _, rows = runs
+    assert len(rows) == 10
+    for i, r in enumerate(rows):
+        (tj, pj, lj), (tt, pt, lt) = r["j"], r["t"]
+        assert tj == tt and lj == lt, i
+        assert r["jn"] == r["tn"], (i, r["jn"], r["tn"])
+        assert np.abs(pj - pt).max() <= 1e-4, (i, np.abs(pj - pt).max())
+    assert not any(r["t"][2] for r in rows)
+
+
+def test_keyframes_and_map(runs):
+    js, ts, _ = runs
+    jv = np.asarray(js.map.kf_valid)
+    np.testing.assert_array_equal(np.asarray(js.map.kf_frame_id)[jv],
+                                  ts.map.kf_frame_id.numpy()[ts.map.kf_valid.numpy()])
+    assert js.n_points == ts.n_points > 200
+    np.testing.assert_allclose(np.asarray(js.map.kf_pose)[jv],
+                               ts.map.kf_pose.numpy()[jv], atol=1e-4)
+
+
+def test_trajectory_quality(runs, seq):
+    _, ts, _ = runs
+    gt_ts = 1000.0 + np.arange(len(seq["poses"])) / 30.0
+    est = [(t, np.linalg.inv(T)) for t, T, lost in ts.tracker.trajectory if not lost]
+    ate = trajectory.ate_rmse(gt_ts, seq["poses"], np.array([e[0] for e in est]),
+                              np.array([e[1] for e in est]))
+    assert ate < 0.05
+
+
+@pytest.mark.parametrize("at", [3, 5])
+def test_step_from_jax_state(seq, at):
+    """One port step on the JAX run's own map, control state and frame
+    (handed over through `interop`): the same outcome and map. Frame 5
+    creates a keyframe on this sequence, frame 3 does not."""
+    js = _system(jcfg, jsys)
+    frames = list(dataset.TUMDataset(seq["root"], depth_factor=5000.0))
+    for t, gray, depth in frames[:at]:
+        js.track_rgbd(gray, depth, t)
+    js.tracker.flush()
+    t, gray, depth = frames[at]
+    jfr = js.builder.build(gray, t - js.tracker.ts_epoch, depth)
+    jmap, jctrl = js.tracker.map, js.tracker.ctrl
+    tmap = interop.map_state_from_numpy(jmap)
+    tctrl = interop.control_from_numpy(jctrl)
+    tfr = interop.frame_from_numpy(jfr)
+    np.testing.assert_array_equal(interop.frame_to_numpy(tfr)["desc"],
+                                  np.asarray(jfr.desc))
+    step = _system(tcfg, tsys, device="cpu").tracker.step
+    tm2, tc2, tout = step(tmap, tctrl, tfr)
+    jm2, jc2, jout = js.tracker.step(jmap, jctrl, jfr)
+    assert tout.mode == int(jout.mode)
+    assert tout.kf_created == bool(jout.kf_created) == (at == 5)
+    assert tout.kf_slot == int(jout.kf_slot)
+    assert tout.n_inliers == int(jout.n_inliers)
+    assert np.abs(tout.pose.numpy() - np.asarray(jout.pose)).max() <= 1e-4
+    tc = interop.control_to_numpy(tc2)
+    np.testing.assert_array_equal(tc["last_matched"], np.asarray(jc2.last_matched))
+    assert tc["ref_kf"] == int(jc2.ref_kf) and tc["frame_id"] == int(jc2.frame_id)
+    tmn = interop.map_state_to_numpy(tm2)
+    for k, v in jm2._asdict().items():
+        v = np.asarray(v)
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(tmn[k], v, atol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_array_equal(tmn[k], v, err_msg=k)
+
+
+def test_compaction_matches_jax(seq, monkeypatch):
+    """With 1024 point slots the second keyframe pushes the allocator past
+    90% and both systems compact the map (slot recycling) mid-sequence."""
+    from orbslam_mapsave_tpu_torch.slammap import mapstate
+
+    calls = []
+    compact = mapstate.compact_points
+    monkeypatch.setattr(mapstate, "compact_points",
+                        lambda st: calls.append(1) or compact(st))
+    js = _system(jcfg, jsys, max_points=1024)
+    ts = _system(tcfg, tsys, max_points=1024, device="cpu")
+    for t, gray, depth in dataset.TUMDataset(seq["root"], depth_factor=5000.0):
+        js.track_rgbd(gray, depth, t)
+        js.tracker.flush()
+        ts.track_rgbd(gray, depth, t)
+        (_, pj, lj), (_, pt, lt) = js.tracker.trajectory[-1], ts.tracker.trajectory[-1]
+        assert lj == lt and np.abs(pj - pt).max() <= 1e-4
+        assert (js.n_keyframes, js.n_points) == (ts.n_keyframes, ts.n_points)
+    assert len(calls) > 0
+    np.testing.assert_array_equal(np.asarray(js.map.kf_kp_point),
+                                  ts.map.kf_kp_point.numpy())
+
+
+def test_lost_right_after_init_resets(seq):
+    """A frame with no features is lost; with <= 5 keyframes the system
+    starts over (`src/Tracking.cc:712-718`) and the next frame initializes
+    a fresh map."""
+    from orbslam_mapsave_tpu_torch.pipeline import tracking
+
+    ts = _system(tcfg, tsys, device="cpu")
+    frames = list(dataset.TUMDataset(seq["root"], depth_factor=5000.0))
+    for t, gray, depth in frames[:3]:
+        ts.track_rgbd(gray, depth, t)
+    assert ts.tracking_state == tracking.OK
+    t, gray, depth = frames[3]
+    ts.track_rgbd(np.zeros_like(gray), np.zeros_like(depth), t)
+    assert ts.tracking_state == tracking.NO_IMAGES_YET
+    assert ts.n_keyframes == 0 and ts.tracker.trajectory == []
+    t, gray, depth = frames[4]
+    ts.track_rgbd(gray, depth, t)
+    assert ts.tracking_state == tracking.OK and ts.n_keyframes == 1
+
+
+def test_cpu_run_used_plain_pose_opt(runs):
+    assert pose_opt_cuda.launches == 0
+
+
+@pytest.mark.parametrize("kw", [dict(enable_mapping=True),
+                                dict(enable_mapping=False, vocabulary=object()),
+                                dict(enable_mapping=False, reuse_map_path="m.bin")])
+def test_unported_options_raise(kw):
+    cfg = tcfg.SystemConfig()
+    with pytest.raises(NotImplementedError):
+        tsys.SLAMSystem(cfg, tsys.Sensor.RGBD, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tsys.SLAMSystem(cfg, tsys.Sensor.MONOCULAR, enable_mapping=False,
+                        device="cpu")
