@@ -1,24 +1,37 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-kernel FILE]
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result):
 
 1. device   — a CUDA card must be present; prints its name and power limit.
-2. build    — compiles the pose-LM kernel (csrc/pose_lm.cu) with nvcc.
+2. build    — compiles the pose-LM kernel (csrc/pose_lm.cu) with nvcc and
+              prints ptxas's report; any register spill fails.
 3. kernel   — the kernel against its plain PyTorch version on the card at
               M = 2048, 900, 1024 edges and B = 1, 4 problems: pose max-abs
-              <= 1e-4, identical inlier sets, two runs bit-identical; then
-              both timed with CUDA events (median of 50).
+              <= 1e-4, identical inlier sets and counts (a flip is accepted
+              only within 1e-4 relative of its chi2 gate, and printed), two
+              runs bit-identical; all-invalid and all-behind edge sets return
+              the input pose. Then CUDA-event timings (median of 50) at
+              M = 2048, B = 1 and 4: the kernel alone (replays of a CUDA
+              graph of launches), the wrapper (one synchronous call), the
+              plain version (B = 1), per-LM-iteration
+              microseconds as (t(n_iters=10) - t(n_iters=5)) / 20 at M = 2048
+              and M = 128, and the share of an iteration that grows with M.
 4. slice    — the benchmark sequence (bench.py: 640x480, 2000 ORB features,
               circle_trajectory(240, radius=0.55, revs=1.30) in a
               BoxRoom(2.0, seed=11), u8 image + f16 depth) through
               SLAMSystem RGB-D tracking at max_keypoints=2048,
               max_keyframes=64, max_points=32768: no frame lost, keyframe
               count within 20% of the JAX package's CPU run, keyframe ATE
-              within 1 cm of it, and >= 2 pose-LM launches per tracked
-              frame.
+              within 1 cm of it, and exactly one pose-LM launch per pose
+              optimization (>= 2 per tracked frame).
+5. old      — only with --old-kernel FILE: an earlier pose_lm.cu (its
+              interface takes edges packed as (B, 8, M) rows) is built and
+              timed against the current kernel in turns (old, new, new, old).
+6. profile  — a torch.profiler trace of 10 calls shows 10 device kernels,
+              all pose_lm_kernel (last: a profile slows later launches).
 
 The last lines are a JSON record of the kernels, the card's
 `nvidia-smi` name/power line, and {"ok": true, "device": {...}}.
@@ -26,11 +39,15 @@ The last lines are a JSON record of the kernels, the card's
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,6 +59,21 @@ JAX_CPU_KF_ATE_M = 0.023118204057347373
 N_FRAMES = 240
 W, H = 640, 480
 POSE_TOL = 1e-4  # kernel vs plain: f32 sums in another order
+GATE_REL = 1e-4  # an inlier may flip only this close (relative) to its gate
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+N_SM = 132
+# Work of csrc/pose_lm.cu per valid edge, counted from its source (a
+# division or square root counts one): the system pass (residual 36 +
+# Huber weight 3 + Jacobians 22 + 21 H entries x 7 + 6 g entries x 7 + cost
+# 2) and the output pass (residual). The 6x6 solve's few hundred FLOPs per
+# iteration are left out (< 0.1%).
+FLOP_SYSTEM_PASS = 255
+FLOP_OUTPUT_PASS = 36
+BYTES_PER_EDGE = 12 + 8 + 4 + 4 + 1 + 1  # pt_w uv ur inv_sigma2 valid in, inlier out
+BYTES_PER_PROBLEM = 64 + 64 + 4  # pose in, pose and count out
 
 
 def log(*a):
@@ -59,15 +91,25 @@ def phase_device() -> str:
     return smi
 
 
+def _ptxas_report(lib: Path) -> str:
+    text = lib.with_suffix(".ptxas.txt").read_text()
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
+    if not spills or any(spills):
+        raise AssertionError(f"ptxas reports spills (or no report):\n{text}")
+    return text
+
+
 def phase_build():
     from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
 
     t0 = time.perf_counter()
     path = pose_opt_cuda.build()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+    log("[build] ptxas: " + _ptxas_report(path).strip().replace("\n", "\n[build] ptxas: "))
 
 
 def _time_ms(fn, n=50) -> float:
+    """Median of n synchronous calls, each between two CUDA events."""
     for _ in range(3):
         fn()
     times = []
@@ -82,55 +124,179 @@ def _time_ms(fn, n=50) -> float:
     return statistics.median(times)
 
 
+def _time_kernel_ms(fn, n=50, per=5) -> float:
+    """Device time of one launch: median over n replays of a CUDA graph
+    that holds `per` calls, so no host work sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(per):
+            fn()
+    times = []
+    for _ in range(n + 3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    return statistics.median(times[3:])
+
+
+def _per_iter_us(kern) -> float:
+    """Microseconds per LM iteration: (t(n_iters=10) - t(n_iters=5)) / 20,
+    20 being the 4 rounds x 5 iterations between the two."""
+    return 1e3 * (_time_kernel_ms(lambda: kern(10)) - _time_kernel_ms(lambda: kern(5))) / 20
+
+
+def _check_inliers(cam, pose_k, inl_k, n_k, pose_r, inl_r, obs1) -> int:
+    """Inlier sets must be equal, except an edge whose raw chi2 lies within
+    GATE_REL (relative) of its gate at either pose; returns the flips."""
+    from orbslam_mapsave_tpu_torch.optim import lm, pose_opt
+
+    if int(n_k) != int(inl_k.sum()):
+        raise AssertionError(f"kernel count {int(n_k)} != mask sum {int(inl_k.sum())}")
+    flips = torch.nonzero(inl_k != inl_r).flatten()
+    for e in flips.tolist():
+        gate = lm.CHI2_STEREO if float(obs1.ur[e]) >= 0 else lm.CHI2_MONO
+        margins = [float(pose_opt._residuals(cam, p, obs1)[3][e]) / gate - 1.0
+                   for p in (pose_k, pose_r)]
+        log(f"[kernel] inlier flip at edge {e}: chi2/gate - 1 = {margins[0]:.3g} "
+            f"(kernel pose), {margins[1]:.3g} (plain pose)")
+        if min(abs(m) for m in margins) > GATE_REL:
+            raise AssertionError(f"inlier flip at edge {e} is not at its gate")
+    return len(flips)
+
+
+def _bound_ms(obs, n_rounds=4, n_iters=10) -> tuple[float, str, float]:
+    """(least time on the whole card, what bounds it, least time on one SM)
+    for one call on these inputs: every valid edge in every pass."""
+    n_valid = int(obs.valid.sum())
+    B, M = obs.valid.shape
+    flops = n_valid * (n_rounds * (1 + n_iters) * FLOP_SYSTEM_PASS + FLOP_OUTPUT_PASS)
+    t_ops, t_bytes = flops / PEAK_F32, (B * M * BYTES_PER_EDGE + B * BYTES_PER_PROBLEM) / PEAK_BYTES
+    sm_ms = 1e3 * flops / B / (PEAK_F32 / N_SM)
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", sm_ms
+
+
+def _cuda_kernels_per_call(fn, calls=10) -> list[str]:
+    """Names of the device kernels a profile records while fn runs `calls`
+    times. The calls sit between two marker kernels (fills), after warm-up
+    calls inside the same profile: the first launches after the profiler
+    starts can go unrecorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.ones(1, device="cuda")
+        for _ in range(calls):
+            fn()
+        torch.ones(1, device="cuda")
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    marks = [i for i, n in enumerate(names) if "pose_lm_kernel" not in n]
+    if len(marks) < 2:
+        raise AssertionError(f"profile lost its marker kernels: {names}")
+    return names[marks[-2] + 1:marks[-1]]
+
+
 def phase_kernel(dev) -> dict:
     from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
     from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
                                                               make_problem)
 
-    worst = 0.0
+    worst, flips = 0.0, 0
     for M in (2048, 900, 1024):
         for B in (1, 4):
             probs = [make_problem(M, seed=7 + b) for b in range(B)]
             obs = batch_obs(probs, dev)
             pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
             p1, i1, n1 = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
-            p2, i2, _ = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+            p2, i2, n2 = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
             torch.cuda.synchronize()
-            if not (torch.equal(p1, p2) and torch.equal(i1, i2)):
+            if not (torch.equal(p1, p2) and torch.equal(i1, i2) and torch.equal(n1, n2)):
                 raise AssertionError(f"kernel not bit-repeatable at M={M} B={B}")
             for b in range(B):
-                pr, ir, nr = pose_opt.pose_optimization_ref(
-                    CAM, pose0[b], pose_opt.PoseObs(*[x[b] for x in obs]))
+                obs1 = pose_opt.PoseObs(*[x[b] for x in obs])
+                pr, ir, nr = pose_opt.pose_optimization_ref(CAM, pose0[b], obs1)
                 err = (p1[b] - pr).abs().max().item()
                 worst = max(worst, err)
-                if not (err <= POSE_TOL and torch.equal(i1[b], ir)
-                        and int(n1[b]) == int(nr)):
-                    raise AssertionError(
-                        f"kernel != plain at M={M} B={B} b={b}: pose err {err:.3g}, "
-                        f"inliers {int(n1[b])} vs {int(nr)}")
+                if not err <= POSE_TOL:
+                    raise AssertionError(f"kernel != plain at M={M} B={B} b={b}: "
+                                         f"pose err {err:.3g}")
+                flips += _check_inliers(CAM, p1[b], i1[b], n1[b], pr, ir, obs1)
             log(f"[kernel] M={M} B={B}: ok (inliers {n1.tolist()})")
-    # timing at the main path's shape: one problem of M = max_keypoints.
-    # "kernel" is the launch alone on packed edges; "wrapper" adds the
-    # packing and the orthonormalization around it, as the plain version's
-    # time does
-    obs = batch_obs([make_problem(2048)], dev)
-    obs1 = pose_opt.PoseObs(*[x[0] for x in obs])
+    for case in ("all_invalid", "all_behind"):
+        p = make_problem(1024, seed=3)
+        if case == "all_invalid":
+            p["valid"][:] = False
+        else:
+            p["pt_w"][:, 2] *= -1.0
+        pose0 = torch.eye(4, device=dev)[None].contiguous()
+        pose, inl, n = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, batch_obs([p], dev))
+        if not (torch.equal(pose, pose0) and int(n[0]) == 0 and not bool(inl.any())):
+            raise AssertionError(f"{case}: the input pose must come back unchanged")
+        log(f"[kernel] {case}: input pose returned, 0 inliers")
+
+    # the main path's shape: one problem of M = max_keypoints; B = 4 as
+    # relocalization would batch candidates
     eye = torch.eye(4, device=dev)
-    data = pose_opt_cuda.pack_edges(obs)
-    pose12 = eye[None, :3, :].reshape(1, 12).contiguous()
-    ms_k = _time_ms(lambda: pose_opt_cuda.pose_lm_raw(CAM, data, pose12))
-    ms_w = _time_ms(lambda: pose_opt_cuda.pose_optimization_cuda(CAM, eye[None], obs))
-    ms_p = _time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1))
-    log(f"[kernel] M=2048 B=1: kernel {ms_k:.4f} ms, wrapper {ms_w:.4f} ms, "
-        f"plain {ms_p:.4f} ms (CUDA events, median of 50), "
-        f"max |pose err| {worst:.3g}")
-    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+    res = {}
+    for B in (1, 4):
+        obs = batch_obs([make_problem(2048, seed=7 + b) for b in range(B)], dev)
+        pose0 = eye.expand(B, 4, 4).contiguous()
+
+        def kern(n_iters=10, o=obs):
+            return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, o, n_iters=n_iters)
+
+        r = dict(kernel_ms=_time_kernel_ms(kern), wrapper_ms=_time_ms(kern))
+        for M in (2048, 128):
+            o = pose_opt.PoseObs(*[x[:, :M].contiguous() for x in obs])
+            r[f"per_iter_us_M{M}"] = _per_iter_us(lambda n, o=o: kern(n, o))
+        r["edge_pass_share"] = 1.0 - r["per_iter_us_M128"] / r["per_iter_us_M2048"]
+        r["bound_ms"], r["bound_by"], r["sm_bound_ms"] = _bound_ms(obs)
+        if B == 1:
+            obs1 = pose_opt.PoseObs(*[x[0] for x in obs])
+            r["plain_ms"] = _time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1))
+        res[B] = r
+        log(f"[timing] M=2048 B={B} (CUDA events, median of 50): " + json.dumps(r))
+    log(f"[kernel] max |pose err| {worst:.3g}, inlier flips at the gate: {flips}")
+    return dict(max_abs_err=worst, flips=flips, timing=res)
+
+
+def phase_profile(dev):
+    """One device kernel per call, and no other, in a torch.profiler trace.
+    Runs last: after a profile, every launch of the process costs the host
+    more (the profiler's CUPTI hooks stay), which would skew the timings."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
+                                                              make_problem)
+
+    for B in (1, 4):
+        obs = batch_obs([make_problem(2048, seed=7 + b) for b in range(B)], dev)
+        pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+        names = _cuda_kernels_per_call(
+            lambda: pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs))
+        if len(names) != 10:
+            raise AssertionError(f"10 calls ran {len(names)} device kernels "
+                                 f"{sorted(set(names))}, not 10 x pose_lm_kernel")
+        log(f"[profile] B={B}: 10 calls ran 10 device kernels, all pose_lm_kernel")
 
 
 def phase_slice(dev) -> dict:
     from orbslam_mapsave_tpu_torch import config as cfg_mod
     from orbslam_mapsave_tpu_torch.io import synthetic, trajectory as traj_io
-    from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
     from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
     t0 = time.perf_counter()
@@ -161,17 +327,30 @@ def phase_slice(dev) -> dict:
     slam.reset()
     torch.cuda.synchronize()
 
+    # count the pose optimizations the tracker asks for, beside the launches
+    calls = 0
+    dispatch = pose_opt.pose_optimization
+
+    def counted(*args):
+        nonlocal calls
+        calls += 1
+        return dispatch(*args)
+
+    pose_opt.pose_optimization = counted
     pose_opt_cuda.reset_launches()
     frame_ms = np.empty(N_FRAMES)
-    t_start = time.perf_counter()
-    for i in range(N_FRAMES):
-        t1 = time.perf_counter()
-        pose = slam.track_rgbd(*frames[i], stamps[i])
-        torch.cuda.synchronize()
-        frame_ms[i] = 1e3 * (time.perf_counter() - t1)
-        if pose.shape != (4, 4) or not np.isfinite(pose).all():
-            raise AssertionError(f"frame {i}: bad pose {pose}")
-    wall = time.perf_counter() - t_start
+    try:
+        t_start = time.perf_counter()
+        for i in range(N_FRAMES):
+            t1 = time.perf_counter()
+            pose = slam.track_rgbd(*frames[i], stamps[i])
+            torch.cuda.synchronize()
+            frame_ms[i] = 1e3 * (time.perf_counter() - t1)
+            if pose.shape != (4, 4) or not np.isfinite(pose).all():
+                raise AssertionError(f"frame {i}: bad pose {pose}")
+        wall = time.perf_counter() - t_start
+    finally:
+        pose_opt.pose_optimization = dispatch
     launches = pose_opt_cuda.launches
 
     traj = slam.tracker.trajectory
@@ -184,7 +363,7 @@ def phase_slice(dev) -> dict:
                p50_ms=float(np.percentile(frame_ms, 50)),
                p99_ms=float(np.percentile(frame_ms, 99)),
                keyframes=n_kf, points=n_pt, kf_ate_m=kf_ate, lost=len(lost),
-               launches=launches)
+               pose_optimizations=calls, launches=launches)
     log("[slice] " + json.dumps(res))
     if lost:
         raise AssertionError(f"frames lost: {lost}")
@@ -192,24 +371,94 @@ def phase_slice(dev) -> dict:
         raise AssertionError(f"{n_kf} keyframes vs JAX CPU {JAX_CPU_KEYFRAMES}")
     if not kf_ate <= JAX_CPU_KF_ATE_M + 0.01:
         raise AssertionError(f"kf ATE {kf_ate:.4f} m vs JAX CPU {JAX_CPU_KF_ATE_M:.4f} m")
-    if launches < 2 * tracked:
-        raise AssertionError(f"{launches} pose-LM launches for {tracked} tracked frames")
+    if launches != calls or calls < 2 * tracked:
+        raise AssertionError(f"{launches} pose-LM launches for {calls} pose "
+                             f"optimizations in {tracked} tracked frames")
+    return res
+
+
+def phase_old_kernel(dev, source: Path) -> dict:
+    """An earlier pose_lm.cu (C interface: edges packed (B, 8, M) as rows
+    X Y Z U V UR IS2 VALID, pose (B, 12), out pose (B, 16) and u8 inliers),
+    timed against the current kernel in turns: old, new, new, old."""
+    from orbslam_mapsave_tpu_torch.geometry import se3
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
+                                                              make_problem)
+
+    lib = ctypes.CDLL(str(pose_opt_cuda.build(source, name="pose_lm_old")))
+    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    lib.pose_lm_launch.argtypes = [ptr, ptr] + [f32] * 5 + [i32] * 4 + [ptr] * 3
+    lib.pose_lm_launch.restype = i32
+    res = {}
+    for B in (1, 4):
+        obs = batch_obs([make_problem(2048, seed=7 + b) for b in range(B)], dev)
+        B, M = obs.valid.shape
+        pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+
+        def pack():
+            return torch.stack([obs.pt_w[..., 0], obs.pt_w[..., 1], obs.pt_w[..., 2],
+                                obs.uv[..., 0], obs.uv[..., 1], obs.ur,
+                                obs.inv_sigma2, obs.valid], 1).float().contiguous()
+
+        def old_kernel(data, n_iters=10):
+            pose12 = pose0[:, :3, :].reshape(B, 12).contiguous()
+            out = torch.empty((B, 16), device=dev)
+            inl = torch.empty((B, M), dtype=torch.bool, device=dev)
+            err = lib.pose_lm_launch(data.data_ptr(), pose12.data_ptr(), CAM.fx, CAM.fy,
+                                     CAM.cx, CAM.cy, CAM.bf, B, M, 4, n_iters,
+                                     out.data_ptr(), inl.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"old kernel launch failed: CUDA error {err}")
+            return out, inl
+
+        def old_wrapper():  # the old pose_optimization_cuda: pack, launch, epilogue
+            out, inl = old_kernel(pack())
+            return se3.orthonormalize(out.reshape(B, 4, 4)), inl, inl.to(torch.int32).sum(-1)
+
+        def new(n_iters=10):
+            return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs, n_iters=n_iters)
+
+        pn, inl_n, _ = new()
+        po, inl_o, _ = old_wrapper()
+        r = dict(old_vs_new_pose_err=(po - pn).abs().max().item(),
+                 old_vs_new_inliers_equal=bool(torch.equal(inl_o, inl_n)))
+        packed = pack()
+        runs = {"old": (lambda n=10: old_kernel(packed, n), old_wrapper),
+                "new": (new, new)}
+        for i, tag in enumerate(("old", "new", "new", "old")):
+            kern, wrap = runs[tag]
+            r[f"{i}_{tag}"] = dict(kernel_ms=_time_kernel_ms(kern),
+                                   per_iter_us=_per_iter_us(kern),
+                                   wrapper_ms=_time_ms(wrap))
+        res[B] = r
+        log(f"[old] M={M} B={B} {source.name} vs current (old, new, new, old): "
+            + json.dumps(r))
     return res
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-kernel", type=Path, default=None,
+                    help="an earlier csrc/pose_lm.cu to time against the current one")
+    args = ap.parse_args()
     try:
         smi = phase_device()
         dev = torch.device("cuda", 0)
         phase_build()
         kres = phase_kernel(dev)
         sres = phase_slice(dev)
+        if args.old_kernel is not None:
+            phase_old_kernel(dev, args.old_kernel)
+        phase_profile(dev)
     except Exception as e:  # every phase failure ends here, with no result
         import traceback
 
         traceback.print_exc()
         log(f"[chip_smoke] FAILED: {type(e).__name__}: {e}")
         return 1
+    t1 = kres["timing"][1]
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
@@ -217,8 +466,15 @@ def main() -> int:
         "replaces": "orbslam_mapsave_tpu/optim/pose_opt_pallas.py:139",
         "launches": sres["launches"],
         "max_abs_err": kres["max_abs_err"],
-        "ms": kres["ms"],
-        "plain_ms": kres["plain_ms"],
+        "ms": t1["kernel_ms"],
+        "plain_ms": t1["plain_ms"],
+        "bound_ms": t1["bound_ms"],
+        "bound_by": t1["bound_by"],
+        "library_ms": None,
+        "per_iter_us": t1["per_iter_us_M2048"],
+        "wrapper_ms": t1["wrapper_ms"],
+        "edge_pass_share": t1["edge_pass_share"],
+        "sm_bound_ms": t1["sm_bound_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,7 @@ class FrameData(NamedTuple):
 class FrameBuilder:
     """Static camera/ORB config + the per-frame build on a given device."""
 
-    def __init__(self, cam: projection.Camera, spec: orb.ORBSpec,
-                 device="cpu"):
+    def __init__(self, cam: projection.Camera, spec: orb.ORBSpec, device):
         self.cam = cam
         self.spec = spec
         self.device = torch.device(device)

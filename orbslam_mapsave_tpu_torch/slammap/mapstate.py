@@ -192,7 +192,12 @@ def add_points(state: MapState, pos: torch.Tensor, desc: torch.Tensor,
                ) -> tuple[MapState, torch.Tensor]:
     """Bulk-append B candidate points; masked rows are skipped. Slots are
     allocated compactly from n_pt by a prefix sum. Returns (state, slots
-    (B,) i32, -1 where masked out or past capacity)."""
+    (B,) i32, -1 where masked out or past capacity).
+
+    Kept for parity with the JAX version, which sends every skipped row to
+    slot P-1 with that slot's old value, applied in row order: the point
+    written into the last slot is lost (the slot keeps its old contents)
+    when a skipped row comes after it."""
     B = pos.shape[0]
     dev = pos.device
     i32 = torch.int32
@@ -202,9 +207,12 @@ def add_points(state: MapState, pos: torch.Tensor, desc: torch.Tensor,
     cap = state.pt_capacity
     slots = torch.where(slots < cap, slots, minus1)
     ok = slots >= 0
+    rows = torch.arange(B, device=dev)
+    last_skipped = torch.cat([torch.where(ok, -1, rows), rows.new_full((1,), -1)]).max()
+    write = ok & ~((slots == cap - 1) & (rows < last_skipped))
 
     def scat(arr, vals):
-        return set_rows(arr, slots, vals, ok)
+        return set_rows(arr, slots, vals, write)
 
     ref_kf = torch.as_tensor(ref_kf, dtype=i32, device=dev).expand(B)
     first_kf = torch.as_tensor(first_kf, dtype=i32, device=dev).expand(B)

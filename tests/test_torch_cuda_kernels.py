@@ -31,12 +31,16 @@ def _plain(obs, pose0, b):
         CAM, pose0[b], pose_opt.PoseObs(*[x[b] for x in obs]))
 
 
+def _eye(dev, B=1):
+    return torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+
+
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("M", [900, 1024, 2048])
 def test_kernel_matches_plain(dev, M, B):
     probs = [make_problem(M, seed=7 + b) for b in range(B)]
     obs = batch_obs(probs, dev)
-    pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+    pose0 = _eye(dev, B)
     pose_k, inl_k, n_k = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
     pose_k2, inl_k2, _ = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
     torch.cuda.synchronize()
@@ -54,7 +58,17 @@ def test_all_invalid_returns_input_pose(dev):
     p = make_problem(1024, seed=3)
     p["valid"][:] = False
     obs = batch_obs([p], dev)
-    pose0 = torch.eye(4, device=dev)[None].contiguous()
+    pose0 = _eye(dev)
+    pose, inl, n = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    assert torch.equal(pose, pose0)
+    assert int(n[0]) == 0 and not bool(inl.any())
+
+
+def test_all_behind_returns_input_pose(dev):
+    p = make_problem(1024, seed=3)
+    p["pt_w"][:, 2] *= -1.0  # every point behind the camera: H = 0
+    obs = batch_obs([p], dev)
+    pose0 = _eye(dev)
     pose, inl, n = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
     assert torch.equal(pose, pose0)
     assert int(n[0]) == 0 and not bool(inl.any())
@@ -70,12 +84,52 @@ def test_dispatcher_launches_kernel(dev):
     assert pose.shape == (4, 4) and inl.shape == (2048,) and int(n) > 1500
 
 
+def test_wrapper_takes_poseobs_in_place(dev):
+    """PoseObs straight from the caller (bool valid); a non-contiguous view
+    gives exactly what its contiguous copy gives."""
+    obs = batch_obs([make_problem(1024, seed=5 + b) for b in range(2)], dev)
+    assert obs.valid.dtype == torch.bool
+    pose0 = _eye(dev, 2)
+    ref = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    strided = pose_opt.PoseObs(
+        pt_w=obs.pt_w.transpose(1, 2).contiguous().transpose(1, 2),
+        uv=torch.cat([obs.uv, obs.uv], -1)[..., :2],
+        ur=torch.stack([obs.ur, obs.ur], -1)[..., 0],
+        inv_sigma2=torch.stack([obs.inv_sigma2] * 3, 1)[:, 1],
+        valid=torch.stack([obs.valid, obs.valid], -1)[..., 1])
+    assert not any(t.is_contiguous() for t in strided)
+    got = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, strided)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
+def test_pose_is_orthonormal(dev):
+    obs = batch_obs([make_problem(2048, seed=11 + b) for b in range(4)], dev)
+    pose, _, _ = pose_opt_cuda.pose_optimization_cuda(CAM, _eye(dev, 4), obs)
+    R = pose[:, :3, :3]
+    eye3 = torch.eye(3, device=dev)
+    assert (R.transpose(1, 2) @ R - eye3).abs().max().item() <= 1e-6
+    assert torch.equal(pose[:, 3], torch.tensor([0.0, 0, 0, 1], device=dev).expand(4, 4))
+
+
+def test_count_equals_inlier_sum(dev):
+    obs = batch_obs([make_problem(900, seed=s) for s in (1, 2, 3)], dev)
+    _, inl, n = pose_opt_cuda.pose_optimization_cuda(CAM, _eye(dev, 3), obs)
+    assert n.dtype == torch.int32
+    assert torch.equal(n, inl.sum(-1).to(torch.int32))
+
+
 def test_wrapper_rejects_bad_inputs(dev):
-    data = torch.zeros(1, 8, 64, device=dev)
-    with pytest.raises(ValueError):
-        pose_opt_cuda.pose_lm_raw(CAM, data.cpu(), torch.zeros(1, 12))
-    with pytest.raises(TypeError):
-        pose_opt_cuda.pose_lm_raw(CAM, data.double(),
-                                  torch.zeros(1, 12, device=dev))
-    with pytest.raises(ValueError):
-        pose_opt_cuda.pose_lm_raw(CAM, data, torch.zeros(2, 12, device=dev))
+    obs = batch_obs([make_problem(64)], dev)
+    pose0 = _eye(dev)
+    with pytest.raises(ValueError):  # not on the card
+        pose_opt_cuda.pose_optimization_cuda(
+            CAM, pose0.cpu(), pose_opt.PoseObs(*[x.cpu() for x in obs]))
+    with pytest.raises(TypeError):  # float64 points
+        pose_opt_cuda.pose_optimization_cuda(
+            CAM, pose0, obs._replace(pt_w=obs.pt_w.double()))
+    with pytest.raises(TypeError):  # float valid mask
+        pose_opt_cuda.pose_optimization_cuda(
+            CAM, pose0, obs._replace(valid=obs.valid.float()))
+    with pytest.raises(ValueError):  # batch of poses != batch of edges
+        pose_opt_cuda.pose_optimization_cuda(CAM, _eye(dev, 2), obs)

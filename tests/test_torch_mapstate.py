@@ -162,12 +162,12 @@ def test_compact_indices_and_covisible(seeded, cap):
 
 
 def test_points_past_capacity_are_dropped():
-    """Filling the map: rows past capacity are dropped on both sides. The
-    JAX version also sends its masked rows to slot P-1 with that slot's old
-    value, and XLA applies the duplicate writes in row order, so when the
+    """Filling the map: rows past capacity are dropped on both sides, and
+    every row of the state agrees. The JAX version sends its masked rows to
+    slot P-1 with that slot's old value, applied in row order, so when the
     LAST slot is filled by a row that has masked rows after it, the point
-    written there is lost (pt_valid[P-1] stays False). The port drops
-    masked rows outright and keeps it; every other row must agree."""
+    written there is lost (pt_valid[P-1] stays False); the port does the
+    same."""
     cap = 64
     rng = np.random.default_rng(3)
     js = jms.empty_map(K, cap, N)
@@ -183,11 +183,29 @@ def test_points_past_capacity_are_dropped():
     slots = tslots.numpy()
     np.testing.assert_array_equal(np.asarray(jslots), slots)
     assert (slots >= 0).sum() == cap and int(ts.n_pt) == cap
-    assert bool(ts.pt_valid.all())
-    last = int(np.nonzero(slots == cap - 1)[0][0])
-    np.testing.assert_array_equal(ts.pt_pos[cap - 1].numpy(), pos[last])
-    a, b = _np(js), interop.map_state_to_numpy(ts)
-    for k in jms.MapState._fields:
-        if k.startswith("pt_"):
-            a[k], b[k] = a[k][:cap - 1], b[k][:cap - 1]
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert not bool(ts.pt_valid[cap - 1]) and bool(ts.pt_valid[:cap - 1].all())
+    _cmp(js, ts)
+
+
+@pytest.mark.parametrize("case", ["last_row_fills", "no_masked_rows", "overflow_only"])
+def test_add_points_at_capacity_matches_jax(case):
+    """The last slot keeps its point exactly when no skipped row (masked or
+    past capacity) follows the row that fills it."""
+    cap = 40
+    rng = np.random.default_rng(4)
+    js = jms.empty_map(K, cap, N)
+    ts = tms.empty_map(K, cap, N)
+    js, ts, kf, _ = _add_kf(js, ts, rng, 0)
+    n = {"last_row_fills": 48, "no_masked_rows": 40, "overflow_only": 56}[case]
+    pos = rng.uniform([-2, -2, 1], [2, 2, 5], (n, 3)).astype(np.float32)
+    desc = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    valid = np.ones(n, bool)
+    if case == "last_row_fills":  # 8 masked rows, all before the filling row
+        valid[rng.permutation(n - 1)[:8]] = False
+    js, jslots = jms.add_points(js, jnp.asarray(pos), jnp.asarray(desc), kf, kf,
+                                jnp.asarray(valid))
+    ts, tslots = tms.add_points(ts, torch.from_numpy(pos), torch.from_numpy(desc),
+                                kf, kf, torch.from_numpy(valid))
+    np.testing.assert_array_equal(np.asarray(jslots), tslots.numpy())
+    assert bool(ts.pt_valid[cap - 1]) == (case != "overflow_only")
+    _cmp(js, ts)

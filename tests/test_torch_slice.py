@@ -176,6 +176,17 @@ def test_cpu_run_used_plain_pose_opt(runs):
     assert pose_opt_cuda.launches == 0
 
 
+def test_device_defaults_to_the_card(monkeypatch):
+    """With no card, SLAMSystem without `device` raises and names the fix;
+    `device="cpu"` still runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _system(tcfg, tsys)
+    ts = _system(tcfg, tsys, device="cpu")
+    assert ts.device.type == "cpu" and ts.builder.device.type == "cpu"
+    assert ts.map.pt_pos.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw", [dict(enable_mapping=True),
                                 dict(enable_mapping=False, vocabulary=object()),
                                 dict(enable_mapping=False, reuse_map_path="m.bin")])
