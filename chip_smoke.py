@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--old-kernel FILE]
+    python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result):
@@ -14,9 +14,9 @@ no result):
               only within 1e-4 relative of its chi2 gate, and printed), two
               runs bit-identical; all-invalid and all-behind edge sets return
               the input pose. Then CUDA-event timings (median of 50) at
-              M = 2048, B = 1 and 4: the kernel alone (replays of a CUDA
-              graph of launches), the wrapper (one synchronous call), the
-              plain version (B = 1), per-LM-iteration
+              M = 2048, B = 1 and 4: one synchronous call of the wrapper
+              (its one launch), the kernel alone (replays of a CUDA graph
+              of launches), the plain version (B = 1), per-LM-iteration
               microseconds as (t(n_iters=10) - t(n_iters=5)) / 20 at M = 2048
               and M = 128, and the share of an iteration that grows with M.
 4. slice    — the benchmark sequence (bench.py: 640x480, 2000 ORB features,
@@ -27,10 +27,7 @@ no result):
               count within 20% of the JAX package's CPU run, keyframe ATE
               within 1 cm of it, and exactly one pose-LM launch per pose
               optimization (>= 2 per tracked frame).
-5. old      — only with --old-kernel FILE: an earlier pose_lm.cu (its
-              interface takes edges packed as (B, 8, M) rows) is built and
-              timed against the current kernel in turns (old, new, new, old).
-6. profile  — a torch.profiler trace of 10 calls shows 10 device kernels,
+5. profile  — a torch.profiler trace of 10 calls shows 10 device kernels,
               all pose_lm_kernel (last: a profile slows later launches).
 
 The last lines are a JSON record of the kernels, the card's
@@ -39,8 +36,6 @@ The last lines are a JSON record of the kernels, the card's
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import re
 import statistics
@@ -65,13 +60,18 @@ GATE_REL = 1e-4  # an inlier may flip only this close (relative) to its gate
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 N_SM = 132
-# Work of csrc/pose_lm.cu per valid edge, counted from its source (a
-# division or square root counts one): the system pass (residual 36 +
-# Huber weight 3 + Jacobians 22 + 21 H entries x 7 + 6 g entries x 7 + cost
-# 2) and the output pass (residual). The 6x6 solve's few hundred FLOPs per
-# iteration are left out (< 0.1%).
-FLOP_SYSTEM_PASS = 255
-FLOP_OUTPUT_PASS = 36
+# FLOP per edge of csrc/pose_lm.cu, (mono, stereo), counted from its source
+# without the products of the Jacobians' zero entries (Ju[1], Jv[0], Jur[1],
+# and all of Jur on a mono edge); a division or square root counts one. The
+# residual (camera point 18, 1/z 1, projection 6 + uR 2, errors 2 + 1, chi2
+# 4 / 6) is what a pass needs of an edge it reads; an inlier's system terms
+# add the Jacobians (17 / 22), 21 H entries (80 / 110) and 6 g entries
+# (26 / 36), and its cost one add. Left out, so the count stays a lower
+# bound: the Huber weight (<= 4 per edge over its gate, rounds 0-1) and the
+# 6x6 solve (~600 per iteration, < 1%).
+FLOP_RESIDUAL = (31, 36)
+FLOP_SYSTEM = (123, 168)
+FLOP_COST = 1
 BYTES_PER_EDGE = 12 + 8 + 4 + 4 + 1 + 1  # pt_w uv ur inv_sigma2 valid in, inlier out
 BYTES_PER_PROBLEM = 64 + 64 + 4  # pose in, pose and count out
 
@@ -174,15 +174,62 @@ def _check_inliers(cam, pose_k, inl_k, n_k, pose_r, inl_r, obs1) -> int:
     return len(flips)
 
 
-def _bound_ms(obs, n_rounds=4, n_iters=10) -> tuple[float, str, float]:
-    """(least time on the whole card, what bounds it, least time on one SM)
-    for one call on these inputs: every valid edge in every pass."""
-    n_valid = int(obs.valid.sum())
+def _round_inliers(pose0, obs1) -> list[torch.Tensor]:
+    """Each round's inlier set in a run of the plain version on one
+    problem, which the kernel matches: the valid edges in round 0, then the
+    reclassification that opens each later round."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt
+    from orbslam_mapsave_tpu_torch.optim.pose_problem import CAM
+
+    sets = [obs1.valid]
+    reclassify = pose_opt._reclassify
+
+    def recorded(*args):
+        sets.append(reclassify(*args))
+        return sets[-1]
+
+    pose_opt._reclassify = recorded
+    try:
+        pose_opt.pose_optimization_ref(CAM, pose0, obs1)
+    finally:
+        pose_opt._reclassify = reclassify
+    return sets[:-1]  # the last reclassification is the output pass
+
+
+def _flops(pose0, obs1, n_iters=10) -> int:
+    """The FLOPs one problem's call needs on its data: every pass reads the
+    residual of the edges it needs (all valid edges when it reclassifies,
+    else the round's inliers) and adds the inliers' system terms."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt
+    from orbslam_mapsave_tpu_torch.optim.pose_problem import CAM
+
+    stereo = obs1.ur >= 0
+
+    def count(mask, per):
+        return per[0] * int((mask & ~stereo).sum()) + per[1] * int((mask & stereo).sum())
+
+    behind = pose_opt._residuals(CAM, pose0, obs1)[5]  # round 0 takes them as inliers
+    flops = count(obs1.valid, FLOP_RESIDUAL)  # the output pass
+    for inl in _round_inliers(pose0, obs1):
+        system = count(inl & ~behind, FLOP_SYSTEM) + FLOP_COST * int(inl.sum())
+        flops += count(obs1.valid, FLOP_RESIDUAL) + system  # the round's first pass
+        flops += n_iters * (count(inl, FLOP_RESIDUAL) + system)
+    return flops
+
+
+def _bound_ms(pose0, obs) -> tuple[float, str, float, int]:
+    """(least time on the whole card, what bounds it, least time on one SM,
+    FLOPs) for one call on these inputs; a problem runs on one SM, so the
+    one-SM time is the largest problem's."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt
+
     B, M = obs.valid.shape
-    flops = n_valid * (n_rounds * (1 + n_iters) * FLOP_SYSTEM_PASS + FLOP_OUTPUT_PASS)
-    t_ops, t_bytes = flops / PEAK_F32, (B * M * BYTES_PER_EDGE + B * BYTES_PER_PROBLEM) / PEAK_BYTES
-    sm_ms = 1e3 * flops / B / (PEAK_F32 / N_SM)
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", sm_ms
+    flops = [_flops(pose0[b], pose_opt.PoseObs(*[x[b] for x in obs])) for b in range(B)]
+    t_ops = sum(flops) / PEAK_F32
+    t_bytes = (B * M * BYTES_PER_EDGE + B * BYTES_PER_PROBLEM) / PEAK_BYTES
+    sm_ms = 1e3 * max(flops) / (PEAK_F32 / N_SM)
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            sm_ms, sum(flops))
 
 
 def _cuda_kernels_per_call(fn, calls=10) -> list[str]:
@@ -259,12 +306,14 @@ def phase_kernel(dev) -> dict:
         def kern(n_iters=10, o=obs):
             return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, o, n_iters=n_iters)
 
-        r = dict(kernel_ms=_time_kernel_ms(kern), wrapper_ms=_time_ms(kern))
+        # ms: one synchronous call between two events (host and launch
+        # inside, as PR 1's `ms`); graph_ms: device time of one launch
+        r = dict(ms=_time_ms(kern), graph_ms=_time_kernel_ms(kern))
         for M in (2048, 128):
             o = pose_opt.PoseObs(*[x[:, :M].contiguous() for x in obs])
             r[f"per_iter_us_M{M}"] = _per_iter_us(lambda n, o=o: kern(n, o))
         r["edge_pass_share"] = 1.0 - r["per_iter_us_M128"] / r["per_iter_us_M2048"]
-        r["bound_ms"], r["bound_by"], r["sm_bound_ms"] = _bound_ms(obs)
+        r["bound_ms"], r["bound_by"], r["sm_bound_ms"], r["flops"] = _bound_ms(pose0, obs)
         if B == 1:
             obs1 = pose_opt.PoseObs(*[x[0] for x in obs])
             r["plain_ms"] = _time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1))
@@ -377,80 +426,13 @@ def phase_slice(dev) -> dict:
     return res
 
 
-def phase_old_kernel(dev, source: Path) -> dict:
-    """An earlier pose_lm.cu (C interface: edges packed (B, 8, M) as rows
-    X Y Z U V UR IS2 VALID, pose (B, 12), out pose (B, 16) and u8 inliers),
-    timed against the current kernel in turns: old, new, new, old."""
-    from orbslam_mapsave_tpu_torch.geometry import se3
-    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
-    from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
-                                                              make_problem)
-
-    lib = ctypes.CDLL(str(pose_opt_cuda.build(source, name="pose_lm_old")))
-    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.pose_lm_launch.argtypes = [ptr, ptr] + [f32] * 5 + [i32] * 4 + [ptr] * 3
-    lib.pose_lm_launch.restype = i32
-    res = {}
-    for B in (1, 4):
-        obs = batch_obs([make_problem(2048, seed=7 + b) for b in range(B)], dev)
-        B, M = obs.valid.shape
-        pose0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
-
-        def pack():
-            return torch.stack([obs.pt_w[..., 0], obs.pt_w[..., 1], obs.pt_w[..., 2],
-                                obs.uv[..., 0], obs.uv[..., 1], obs.ur,
-                                obs.inv_sigma2, obs.valid], 1).float().contiguous()
-
-        def old_kernel(data, n_iters=10):
-            pose12 = pose0[:, :3, :].reshape(B, 12).contiguous()
-            out = torch.empty((B, 16), device=dev)
-            inl = torch.empty((B, M), dtype=torch.bool, device=dev)
-            err = lib.pose_lm_launch(data.data_ptr(), pose12.data_ptr(), CAM.fx, CAM.fy,
-                                     CAM.cx, CAM.cy, CAM.bf, B, M, 4, n_iters,
-                                     out.data_ptr(), inl.data_ptr(),
-                                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"old kernel launch failed: CUDA error {err}")
-            return out, inl
-
-        def old_wrapper():  # the old pose_optimization_cuda: pack, launch, epilogue
-            out, inl = old_kernel(pack())
-            return se3.orthonormalize(out.reshape(B, 4, 4)), inl, inl.to(torch.int32).sum(-1)
-
-        def new(n_iters=10):
-            return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs, n_iters=n_iters)
-
-        pn, inl_n, _ = new()
-        po, inl_o, _ = old_wrapper()
-        r = dict(old_vs_new_pose_err=(po - pn).abs().max().item(),
-                 old_vs_new_inliers_equal=bool(torch.equal(inl_o, inl_n)))
-        packed = pack()
-        runs = {"old": (lambda n=10: old_kernel(packed, n), old_wrapper),
-                "new": (new, new)}
-        for i, tag in enumerate(("old", "new", "new", "old")):
-            kern, wrap = runs[tag]
-            r[f"{i}_{tag}"] = dict(kernel_ms=_time_kernel_ms(kern),
-                                   per_iter_us=_per_iter_us(kern),
-                                   wrapper_ms=_time_ms(wrap))
-        res[B] = r
-        log(f"[old] M={M} B={B} {source.name} vs current (old, new, new, old): "
-            + json.dumps(r))
-    return res
-
-
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-kernel", type=Path, default=None,
-                    help="an earlier csrc/pose_lm.cu to time against the current one")
-    args = ap.parse_args()
     try:
         smi = phase_device()
         dev = torch.device("cuda", 0)
         phase_build()
         kres = phase_kernel(dev)
         sres = phase_slice(dev)
-        if args.old_kernel is not None:
-            phase_old_kernel(dev, args.old_kernel)
         phase_profile(dev)
     except Exception as e:  # every phase failure ends here, with no result
         import traceback
@@ -466,13 +448,13 @@ def main() -> int:
         "replaces": "orbslam_mapsave_tpu/optim/pose_opt_pallas.py:139",
         "launches": sres["launches"],
         "max_abs_err": kres["max_abs_err"],
-        "ms": t1["kernel_ms"],
+        "ms": t1["ms"],
         "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"],
         "library_ms": None,
+        "graph_ms": t1["graph_ms"],
         "per_iter_us": t1["per_iter_us_M2048"],
-        "wrapper_ms": t1["wrapper_ms"],
         "edge_pass_share": t1["edge_pass_share"],
         "sm_bound_ms": t1["sm_bound_ms"],
     }]}))

@@ -12,10 +12,12 @@
 // raw chi2 between rounds, then the pose orthonormalized by three Newton
 // polar steps, the inlier mask and the inlier count.
 //
-// What bounds it. The arithmetic is ~255 FLOP per edge and pass (44 passes:
-// ~22 MFLOP at M = 2048), the bytes 29 per edge in and 1 out, so on the
-// whole card it would be FLOP-bound at a third of a microsecond. But one
-// problem is one block on one SM (~43 us of FLOPs there at M = 2048), and
+// What bounds it. An edge a pass reads needs 31 (mono) / 36 (stereo) FLOP
+// of residual, an inlier 123 / 168 more for its Jacobians, H and g (44
+// passes: ~13.5 MFLOP at M = 2048 on the seeded test problems), the bytes
+// are 29 per edge in and 1 out, so on the whole card it would be FLOP-bound
+// at a fifth of a microsecond. But one problem is one block on one SM
+// (~27 us of FLOPs there at M = 2048), and
 // the schedule is a chain of 40 dependent LM iterations, each waiting on a
 // block reduction and a 6x6 solve whose own chain is bound by the latency
 // of its IEEE divisions and square roots. The design cuts that chain:

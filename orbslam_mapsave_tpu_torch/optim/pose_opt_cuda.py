@@ -64,18 +64,19 @@ def _nvcc() -> str:
                        "csrc/pose_lm.cu with the CUDA toolkit (set CUDA_HOME)")
 
 
-def build(source: Path = SOURCE, name: str = "pose_lm") -> Path:
-    """Compile `source` into `_build/` (keyed by its hash and the flags)
-    unless that library already exists; returns its path. ptxas's report
-    (registers, shared memory, spills) is kept in `<library>.ptxas.txt`."""
-    src = source.read_bytes()
+def build() -> Path:
+    """Compile the kernel into `_build/` (keyed by the source's hash and the
+    flags) unless that library already exists; returns its path. ptxas's
+    report (registers, shared memory, spills) is kept in
+    `<library>.ptxas.txt`."""
+    src = SOURCE.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{key}.so"
+    out = BUILD_DIR / f"libpose_lm_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
