@@ -22,13 +22,26 @@ no result):
 4. slice    — the benchmark sequence (bench.py: 640x480, 2000 ORB features,
               circle_trajectory(240, radius=0.55, revs=1.30) in a
               BoxRoom(2.0, seed=11), u8 image + f16 depth) through
-              SLAMSystem RGB-D tracking at max_keypoints=2048,
-              max_keyframes=64, max_points=32768: no frame lost, keyframe
-              count within 20% of the JAX package's CPU run, keyframe ATE
-              within 1 cm of it, and exactly one pose-LM launch per pose
-              optimization (>= 2 per tracked frame).
-5. profile  — a torch.profiler trace of 10 calls shows 10 device kernels,
-              all pose_lm_kernel (last: a profile slows later launches).
+              SLAMSystem RGB-D tracking only (enable_mapping=False) at
+              max_keypoints=2048, max_keyframes=64, max_points=32768: no
+              frame lost, keyframe count within 20% of the JAX package's
+              CPU run, keyframe ATE within 1 cm of it, and exactly one
+              pose-LM launch per pose optimization (>= 2 per tracked frame).
+5. mapping  — the same sequence through SLAMSystem(cfg, RGBD) with its
+              default local mapping (the bench with BENCH_NO_LOOP=1): no
+              frame lost, keyframes within 20% and keyframe ATE within 1 cm
+              of the JAX CPU run with mapping, no BA lane dropped, one
+              pose-LM launch per pose optimization; frames/s, p50/p99 ms per
+              frame and p50/p99 ms per mapping step (host clock, synced).
+6. map step — one mapping step from a state captured in phase 5, run twice
+              on the card (bit-identical) and once on the CPU: poses and
+              points within 1e-3, the same kf_valid, live points within
+              0.5%; the differences are printed.
+7. profile  — a torch.profiler trace of 10 pose-LM calls shows 10 device
+              kernels, all pose_lm_kernel; then one mapping step from the
+              phase-6 state: its device kernels, host reads (stream syncs)
+              and top device operations (last: a profile slows later
+              launches).
 
 The last lines are a JSON record of the kernels, the card's
 `nvidia-smi` name/power line, and {"ok": true, "device": {...}}.
@@ -47,11 +60,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# JAX package, CPU, same sequence and configuration with enable_mapping=False
-# and no vocabulary (measured once; see PERF.md): 240 frames, none lost.
+# JAX package, CPU, same sequence and configuration, no vocabulary, measured
+# once by tools/jax_cpu_bench_reference.py (see PERF.md): 240 frames, none
+# lost. Tracking only (enable_mapping=False):
 JAX_CPU_KEYFRAMES = 23
 JAX_CPU_KF_ATE_M = 0.023118204057347373
+# with local mapping (the default; bench.py with BENCH_NO_LOOP=1), 0 BA
+# lanes dropped:
+JAX_CPU_MAPPING_KEYFRAMES = 23
+JAX_CPU_MAPPING_KF_ATE_M = 0.04588471254948784
+MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
+WARMUP_FRAMES = 24  # untimed frames before each slice; reach a third keyframe
 W, H = 640, 480
 POSE_TOL = 1e-4  # kernel vs plain: f32 sums in another order
 GATE_REL = 1e-4  # an inlier may flip only this close (relative) to its gate
@@ -342,11 +362,10 @@ def phase_profile(dev):
         log(f"[profile] B={B}: 10 calls ran 10 device kernels, all pose_lm_kernel")
 
 
-def phase_slice(dev) -> dict:
-    from orbslam_mapsave_tpu_torch import config as cfg_mod
-    from orbslam_mapsave_tpu_torch.io import synthetic, trajectory as traj_io
-    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
-    from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
+def bench_sequence():
+    """The benchmark sequence (bench.py): ground-truth Twc poses and
+    (u8 image, f16 depth) frames."""
+    from orbslam_mapsave_tpu_torch.io import synthetic
 
     t0 = time.perf_counter()
     K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
@@ -358,6 +377,12 @@ def phase_slice(dev) -> dict:
         frames.append((np.clip(gray, 0, 255).astype(np.uint8),
                        depth.astype(np.float16)))
     log(f"[slice] rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    return poses, frames
+
+
+def _bench_system(dev, enable_mapping: bool):
+    from orbslam_mapsave_tpu_torch import config as cfg_mod
+    from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
     cfg = cfg_mod.SystemConfig()
     cfg.camera = cfg_mod.CameraConfig(
@@ -367,12 +392,26 @@ def phase_slice(dev) -> dict:
     cfg.max_keypoints = 2048
     cfg.max_keyframes = 64
     cfg.max_points = 32768
-    slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD,
-                                 enable_mapping=False, device=dev)
+    return system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD,
+                                 enable_mapping=enable_mapping, device=dev)
+
+
+def _run_slice(slam, seq, name: str, on_start=None) -> dict:
+    """Warm up, reset, then drive the whole sequence through the system with
+    the pose-LM launch counter zeroed (and on_start called) just before;
+    one device sync per frame. Returns the run's numbers."""
+    from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+
+    poses, frames = seq
     stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
-    # warm-up (cuBLAS/cuDNN handles, allocator), then the measured run
-    for i in range(10):
+    # warm-up, then the measured run. WARMUP_FRAMES reach the third keyframe,
+    # so with mapping the warm-up runs one local BA: the cuBLAS/cuSOLVER
+    # handles, the first 384x384 Cholesky and the allocator's first blocks
+    # for the BA tables all fall outside the timed run
+    for i in range(WARMUP_FRAMES):
         slam.track_rgbd(*frames[i], stamps[i])
+    warmup_keyframes = slam.n_keyframes
     slam.reset()
     torch.cuda.synchronize()
 
@@ -386,6 +425,8 @@ def phase_slice(dev) -> dict:
         return dispatch(*args)
 
     pose_opt.pose_optimization = counted
+    if on_start is not None:
+        on_start()
     pose_opt_cuda.reset_launches()
     frame_ms = np.empty(N_FRAMES)
     try:
@@ -406,23 +447,208 @@ def phase_slice(dev) -> dict:
     lost = [i for i, (_, _, l) in enumerate(traj) if l]
     ts, est = slam.keyframe_trajectory()
     kf_ate = traj_io.ate_rmse(stamps, poses, ts, np.linalg.inv(est))
-    n_kf, n_pt = slam.n_keyframes, slam.n_points
     tracked = N_FRAMES - 1 - len(lost)  # frame 0 initializes the map
     res = dict(frames=N_FRAMES, fps=N_FRAMES / wall,
                p50_ms=float(np.percentile(frame_ms, 50)),
                p99_ms=float(np.percentile(frame_ms, 99)),
-               keyframes=n_kf, points=n_pt, kf_ate_m=kf_ate, lost=len(lost),
-               pose_optimizations=calls, launches=launches)
-    log("[slice] " + json.dumps(res))
+               keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=kf_ate,
+               lost=len(lost), pose_optimizations=calls, launches=launches,
+               ba_lanes_dropped=slam.tracker.ba_lanes_dropped,
+               ba_escalations=slam.tracker.ba_escalations,
+               warmup_keyframes=warmup_keyframes)
+    log(f"[{name}] " + json.dumps(res))
     if lost:
         raise AssertionError(f"frames lost: {lost}")
-    if abs(n_kf - JAX_CPU_KEYFRAMES) > 0.2 * JAX_CPU_KEYFRAMES:
-        raise AssertionError(f"{n_kf} keyframes vs JAX CPU {JAX_CPU_KEYFRAMES}")
-    if not kf_ate <= JAX_CPU_KF_ATE_M + 0.01:
-        raise AssertionError(f"kf ATE {kf_ate:.4f} m vs JAX CPU {JAX_CPU_KF_ATE_M:.4f} m")
     if launches != calls or calls < 2 * tracked:
         raise AssertionError(f"{launches} pose-LM launches for {calls} pose "
                              f"optimizations in {tracked} tracked frames")
+    return res
+
+
+def _check_quality(res: dict, keyframes: int, kf_ate: float):
+    if abs(res["keyframes"] - keyframes) > 0.2 * keyframes:
+        raise AssertionError(f"{res['keyframes']} keyframes vs JAX CPU {keyframes}")
+    if not res["kf_ate_m"] <= kf_ate + 0.01:
+        raise AssertionError(f"kf ATE {res['kf_ate_m']:.4f} m vs JAX CPU {kf_ate:.4f} m")
+
+
+def phase_slice(dev, seq) -> dict:
+    res = _run_slice(_bench_system(dev, enable_mapping=False), seq, "slice")
+    _check_quality(res, JAX_CPU_KEYFRAMES, JAX_CPU_KF_ATE_M)
+    return res
+
+
+def phase_mapping(dev, seq) -> tuple[dict, object, tuple]:
+    """The mapping slice; also times every mapping step (synced before and
+    after) and keeps the input of the MAP_STEP_CAPTURE-th for phase 6."""
+    slam = _bench_system(dev, enable_mapping=True)
+    mapper = slam.mapper
+    step = mapper._map_step
+    times, captured = [], []
+
+    def timed(state, kf_slot, recent_start, abort):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, kf_slot, recent_start, abort)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if len(times) == MAP_STEP_CAPTURE:
+            captured.append((type(state)(*[x.clone() for x in state]), kf_slot,
+                             recent_start, abort))
+        return out
+
+    mapper._map_step = timed
+    try:
+        res = _run_slice(slam, seq, "mapping", on_start=times.clear)
+    finally:
+        del mapper._map_step
+    res.update(map_steps=len(times), map_step_p50_ms=float(np.percentile(times, 50)),
+               map_step_p99_ms=float(np.percentile(times, 99)),
+               map_step_ms_total=float(np.sum(times)))
+    _check_quality(res, JAX_CPU_MAPPING_KEYFRAMES, JAX_CPU_MAPPING_KF_ATE_M)
+    if res["warmup_keyframes"] < 3:  # else the first BA's cold start is timed
+        raise AssertionError(f"the warm-up made {res['warmup_keyframes']} keyframes, "
+                             "so it ran no local BA")
+    if res["ba_lanes_dropped"] != 0:
+        raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
+    if not captured:
+        raise AssertionError(f"only {len(times)} mapping steps ran")
+    log("[mapping] " + json.dumps({k: res[k] for k in (
+        "map_steps", "map_step_p50_ms", "map_step_p99_ms", "map_step_ms_total")}))
+    return res, mapper, captured[0]
+
+
+def _map_step_stages(mapper, captured) -> dict:
+    """Host-clock ms of each stage of one replayed mapping step (a device
+    sync before and after each), and the LM iterations its BA ran."""
+    from orbslam_mapsave_tpu_torch.optim import local_ba
+    from orbslam_mapsave_tpu_torch.pipeline import local_mapping as lm
+
+    ms_ = {}
+    iters = [0]
+    targets = [(lm, "recent_point_culling", "recent culling"),
+               (mapper.tri, "batched", "triangulation"),
+               (mapper.tri, "finalize_idx", "new-point descriptors + normals"),
+               (lm, "fuse_into_keyframe", "fuse neighbours -> keyframe"),
+               (mapper, "_reverse_fuse", "fuse keyframe -> 3 neighbours"),
+               (lm.ms, "update_connections", "covisibility updates"),
+               (mapper, "_ba", "local BA"),
+               (lm, "keyframe_culling", "keyframe culling")]
+    saved = []
+    for obj, name, label in targets:
+        fn = getattr(obj, name)
+        saved.append((obj, name, fn, name in vars(obj)))
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            ms_[_label] = ms_.get(_label, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+
+        setattr(obj, name, timed)
+    step_fn = local_ba._build_and_solve
+
+    def counted(*a, **k):
+        iters[0] += 1
+        return step_fn(*a, **k)
+
+    local_ba._build_and_solve = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mapper._map_step(*captured)
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        local_ba._build_and_solve = step_fn
+        for obj, name, fn, own in saved:
+            if own:  # a module's or namespace's attribute
+                setattr(obj, name, fn)
+            else:  # a method: drop the instance attribute that shadows it
+                delattr(obj, name)
+    ms_["rest"] = total - sum(ms_.values())
+    return dict(total_ms=total, stages_ms=ms_, lm_iterations=iters[0])
+
+
+def phase_map_step(mapper, captured) -> dict:
+    """Replay one captured mapping step twice on the card (bit-identical)
+    and once on the CPU (poses, points within 1e-3; same kf_valid; live
+    points within 0.5%)."""
+    state, kf_slot, recent_start, abort = captured
+    outs = [mapper._map_step(state, kf_slot, recent_start, abort) for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, da, ea), (b, db, eb) = outs
+    same = [k for k, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    if same or (da, ea) != (db, eb):
+        raise AssertionError(f"map step not bit-repeatable on the card: {same}")
+    cpu_state = type(state)(*[x.cpu() for x in state])
+    t0 = time.perf_counter()
+    c, dc, ec = mapper._map_step(cpu_state, kf_slot, recent_start, abort)
+    cpu_s = time.perf_counter() - t0
+    a = type(a)(*[x.cpu() for x in a])
+    both = a.pt_valid & c.pt_valid
+    diff = dict(
+        kf_slot=kf_slot, n_kf=int(a.kf_valid.sum()),
+        pose_max_abs=float((a.kf_pose - c.kf_pose).abs().max()),
+        point_max_abs=float((a.pt_pos - c.pt_pos)[both].abs().max()),
+        live_points_card=int(a.pt_valid.sum()), live_points_cpu=int(c.pt_valid.sum()),
+        kf_valid_equal=bool(torch.equal(a.kf_valid, c.kf_valid)),
+        fwd_rows_equal=float((a.kf_kp_point == c.kf_kp_point).float().mean()),
+        ba=(da, ea), ba_cpu=(dc, ec), cpu_s=cpu_s)
+    log("[map step] card x2 bit-identical; card vs CPU: " + json.dumps(diff))
+    log("[map step] stages on the card (host clock, synced): "
+        + json.dumps(_map_step_stages(mapper, captured)))
+    if not diff["kf_valid_equal"]:
+        raise AssertionError("kf_valid differs between card and CPU")
+    if not (diff["pose_max_abs"] <= 1e-3 and diff["point_max_abs"] <= 1e-3):
+        raise AssertionError("card and CPU map steps differ by more than 1e-3")
+    n_a, n_c = diff["live_points_card"], diff["live_points_cpu"]
+    if abs(n_a - n_c) > 0.005 * n_c:
+        raise AssertionError(f"live points {n_a} (card) vs {n_c} (CPU)")
+    return diff
+
+
+def phase_profile_map_step(mapper, captured) -> dict:
+    """One mapping step under torch.profiler (after one unprofiled-range
+    step inside the same profile): device kernels, host reads (stream
+    syncs) and the top device operations of the second step."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mapper._map_step(*captured)
+        torch.cuda.synchronize()
+        with record_function("map_step"):
+            mapper._map_step(*captured)
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e for e in events if e.name == "map_step").time_range
+
+    def inside(e):
+        return e.time_range.start >= span.start and e.time_range.end <= span.end
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and inside(e)
+           and e.name != "map_step"]  # the range itself shows on the device too
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    cpu = [e for e in events if e.device_type == DeviceType.CPU and inside(e)]
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in cpu) - 1  # the final one
+    launch_api = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in cpu)
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_us = sum(sum(v) for v in by_name.values())
+    res = dict(kernels=len(kernels), launch_api_calls=launch_api, host_reads=syncs,
+               copies=len(dev) - len(kernels), device_ms=device_us / 1e3,
+               wall_ms=span.elapsed_us() / 1e3,
+               device_busy_share=device_us / span.elapsed_us())
+    log("[profile] one mapping step: " + json.dumps(res))
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    log("[profile] top device operations of the step (us total, calls, name):")
+    for name, ts in top:
+        log(f"[profile]   {sum(ts):10.1f} {len(ts):5d}  {name[:110]}")
     return res
 
 
@@ -432,8 +658,12 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         phase_build()
         kres = phase_kernel(dev)
-        sres = phase_slice(dev)
+        seq = bench_sequence()
+        phase_slice(dev, seq)
+        mres, mapper, captured = phase_mapping(dev, seq)
+        phase_map_step(mapper, captured)
         phase_profile(dev)
+        pres = phase_profile_map_step(mapper, captured)
     except Exception as e:  # every phase failure ends here, with no result
         import traceback
 
@@ -441,12 +671,19 @@ def main() -> int:
         log(f"[chip_smoke] FAILED: {type(e).__name__}: {e}")
         return 1
     t1 = kres["timing"][1]
+    log("[chip_smoke] mapping slice: " + json.dumps(dict(
+        fps=mres["fps"], p50_ms=mres["p50_ms"], p99_ms=mres["p99_ms"],
+        map_step_p50_ms=mres["map_step_p50_ms"], map_step_p99_ms=mres["map_step_p99_ms"],
+        map_steps=mres["map_steps"], launches_per_map_step=pres["kernels"],
+        host_reads_per_map_step=pres["host_reads"], keyframes=mres["keyframes"],
+        kf_ate_m=mres["kf_ate_m"], lost=mres["lost"],
+        ba_lanes_dropped=mres["ba_lanes_dropped"])))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
         "source": "orbslam_mapsave_tpu_torch/csrc/pose_lm.cu",
         "replaces": "orbslam_mapsave_tpu/optim/pose_opt_pallas.py:139",
-        "launches": sres["launches"],
+        "launches": mres["launches"],
         "max_abs_err": kres["max_abs_err"],
         "ms": t1["ms"],
         "plain_ms": t1["plain_ms"],

@@ -1,7 +1,7 @@
 """Projection- and descriptor-guided matching over whole frames.
 
 Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset RGB-D tracking
-uses): each search builds a dense (candidates x features) mask — window
+and local mapping use): each search builds a dense (candidates x features) mask — window
 radius, octave range, rotation bins — over the full Hamming matrix, and
 conflicts (several candidates claiming one feature) go to the smallest
 distance, then the lowest candidate row.
@@ -54,20 +54,20 @@ def frustum_check(cam: projection.Camera, pose_cw: torch.Tensor,
 
 def _resolve_conflicts(best_feat: torch.Tensor, best_dist: torch.Tensor,
                        ok: torch.Tensor, n_features: int) -> torch.Tensor:
-    """Per-feature winner among candidate rows: (N,) candidate index or -1.
-    Ties by distance, then by candidate order."""
-    P = best_feat.shape[0]
+    """Per-feature winner among candidate rows: (...,N) candidate index or
+    -1, from (...,P) inputs. Ties by distance, then by candidate order."""
+    P = best_feat.shape[-1]
     dev = best_feat.device
     sentinel = torch.iinfo(torch.int32).max
     score = torch.where(
         ok, best_dist.to(torch.int32) * P + torch.arange(P, dtype=torch.int32,
                                                           device=dev),
-        torch.full((P,), sentinel, dtype=torch.int32, device=dev))
+        torch.full_like(best_feat, sentinel, dtype=torch.int32))
     feat_ids = torch.arange(n_features, dtype=torch.int32, device=dev)
-    oh = (best_feat[:, None] == feat_ids[None, :]) & ok[:, None]  # (P,N)
-    score_col = torch.where(oh, score[:, None], torch.full_like(oh, sentinel,
-                                                                dtype=torch.int32))
-    feat_best = torch.amin(score_col, dim=0)
+    oh = (best_feat[..., :, None] == feat_ids) & ok[..., :, None]  # (...,P,N)
+    score_col = torch.where(oh, score[..., :, None],
+                            torch.full_like(oh, sentinel, dtype=torch.int32))
+    feat_best = torch.amin(score_col, dim=-2)
     return torch.where(feat_best < sentinel, feat_best % P,
                        torch.full_like(feat_best, -1))
 
@@ -185,3 +185,50 @@ def search_by_descriptor(desc_bits_1: torch.Tensor, valid_1: torch.Tensor,
     minus1 = torch.full_like(idx, -1)
     return torch.where(good, idx, minus1), torch.sum(good.to(torch.int32))
 
+
+
+def search_for_triangulation(
+    kp1_xy: torch.Tensor, kp1_octave: torch.Tensor, desc_bits_1: torch.Tensor,
+    valid_1: torch.Tensor,
+    kp2_xy: torch.Tensor, kp2_octave: torch.Tensor, desc_bits_2: torch.Tensor,
+    valid_2: torch.Tensor,
+    F12: torch.Tensor, epipole2: torch.Tensor, level_sigma2: torch.Tensor,
+    check_epipole_dist: bool = True,
+    angle_1: torch.Tensor | None = None, angle_2: torch.Tensor | None = None,
+):
+    """Epipolar-constrained matching for new-point triangulation
+    (`ORBmatcher::SearchForTriangulation`, `src/ORBmatcher.cc:660-826`):
+    Hamming < TH_LOW, epipolar-line distance chi2 < 3.84 * sigma2(octave2)
+    (`CheckDistEpipolarLine`), optionally no kp2 within 100 * sigma2 px^2 of
+    the epipole, rotation consistency, one-to-one on image 2.
+
+    Image-2 inputs may carry leading batch dimensions (kp2_xy (...,N2,2),
+    F12 (...,3,3), epipole2 (...,2)): each batch row is one keyframe pair
+    against the same image 1, as the JAX version's vmap over neighbours.
+    Returns (matches (...,N1) i32 index into image 2 or -1, n (...,))."""
+    n_lv = level_sigma2.shape[0]
+    dmat = hamming.hamming_matrix_bits(desc_bits_1, desc_bits_2)  # (...,N1,N2)
+    mask = valid_1[:, None] & valid_2[..., None, :]
+    sig2 = level_sigma2[torch.clamp(kp2_octave, 0, n_lv - 1).long()]  # (...,N2)
+    if check_epipole_dist:
+        de2 = torch.sum((kp2_xy - epipole2[..., None, :]) ** 2, -1)
+        mask = mask & (de2 >= 100.0 * sig2)[..., None, :]
+    # epipolar line of kp1 in image 2: l = F12^T x1
+    x1h = torch.cat([kp1_xy, torch.ones_like(kp1_xy[..., :1])], -1)
+    lines = x1h @ F12  # (...,N1,3): a, b, c
+    a, b, c = lines[..., 0:1], lines[..., 1:2], lines[..., 2:3]
+    num = a * kp2_xy[..., None, :, 0] + b * kp2_xy[..., None, :, 1] + c
+    den = a * a + b * b
+    dsqr = num * num / torch.clamp(den, min=1e-12)
+    mask = mask & (dsqr < 3.84 * sig2[..., None, :])
+    idx, best, _ = hamming.masked_best2(dmat, extra_mask=mask)
+    good = valid_1 & (best < hamming.TH_LOW)
+    if angle_1 is not None and angle_2 is not None:
+        good = good & hamming.rotation_consistency_mask(
+            angle_1, torch.gather(angle_2, -1, torch.clamp(idx, min=0).long()), good)
+    n2 = kp2_xy.shape[-2]
+    winner = _resolve_conflicts(idx, best, good, n2)
+    owner = torch.gather(winner, -1, torch.clamp(idx, min=0).long())
+    good = good & (owner == torch.arange(kp1_xy.shape[0], device=owner.device))
+    return torch.where(good, idx, torch.full_like(idx, -1)), \
+        torch.sum(good.to(torch.int32), -1)

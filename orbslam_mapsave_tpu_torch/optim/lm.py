@@ -1,7 +1,7 @@
 """Shared Levenberg-Marquardt pieces for the geometric optimizers.
 
-Port of `orbslam_mapsave_tpu/optim/lm.py` (the subset pose optimization
-uses). Conventions: poses are Tcw 4x4 matrices, tangent updates are LEFT
+Port of `orbslam_mapsave_tpu/optim/lm.py` (the subset pose optimization,
+local BA and triangulation use). Conventions: poses are Tcw 4x4 matrices, tangent updates are LEFT
 multiplicative T <- se3_exp(xi) @ T with xi = [v(3), w(3)], and the robust
 loss is Huber applied as IRLS weights.
 """
@@ -41,6 +41,31 @@ def point_pose_jacobian(p_cam: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(
         p_cam.shape[:-1] + (3, 3))
     return torch.cat([eye, -hat(p_cam)], dim=-1)
+
+
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / det); |det| < 1e-20 is
+    clamped to 1e-20 as in the JAX version."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+    adj = torch.stack([
+        torch.stack([A11, A12, A13], -1),
+        torch.stack([A21, A22, A23], -1),
+        torch.stack([A31, A32, A33], -1),
+    ], -2)
+    return adj * inv_det[..., None, None]
 
 
 def solve_spd(H: torch.Tensor, g: torch.Tensor, lam,

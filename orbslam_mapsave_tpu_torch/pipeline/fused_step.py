@@ -1,12 +1,12 @@
 """The per-frame tracking step: mode switch, OK-mode pipeline, keyframe
 decision and RGB-D keyframe creation.
 
-Port of `orbslam_mapsave_tpu/pipeline/fused_step.py` without the mapper
-(local mapping is a later slice). The JAX version compiles the frame into
-one device program with `lax.cond`/`lax.switch` because every host read
-crossed a network link; here the branches are Python `if`s on values read
-from the card, and the outcome is read every frame. The results are the
-same; the tests hold this against the JAX step.
+Port of `orbslam_mapsave_tpu/pipeline/fused_step.py`, with the predicated
+local-mapping pass on the frames that create a keyframe. The JAX version
+compiles the frame into one device program with `lax.cond`/`lax.switch`
+because every host read crossed a network link; here the branches are
+Python `if`s on values read from the card, and the outcome is read every
+frame. The results are the same; the tests hold this against the JAX step.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ class ControlState(NamedTuple):
     last_kf_frame_id: int
     last_matched: torch.Tensor  # (N,) i32 point slot per last-frame feature
     last_frame: frame_mod.FrameData
-    recent_start: int  # mapper recent-point window start (unused here)
+    recent_start: int  # mapper recent-point window start
     allow_kf: bool  # False in localization-only mode
     mb_vo: bool  # map-less visual odometry (Tracking.cc:595-640)
 
@@ -53,6 +53,9 @@ class StepOutcome(NamedTuple):
     n_kf: int  # keyframes alive after the frame
     n_pt: int  # point slots allocated (allocator watermark)
     n_kf_alloc: int  # keyframe slots allocated (watermark)
+    ba_lanes_dropped: int = 0  # in-window BA lanes dropped even after
+    # escalation (0 on frames without a mapping pass)
+    ba_escalated: bool = False  # BA rebuilt at O_BA_ESC lanes
 
 
 def initial_control_state(frame: frame_mod.FrameData) -> ControlState:
@@ -67,20 +70,24 @@ def initial_control_state(frame: frame_mod.FrameData) -> ControlState:
 
 
 def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
-                    scale_factor: float, cfg: trk.TrackerConfig):
-    """Returns step(map_state, ctrl, frame) -> (map_state, ctrl, outcome)."""
+                    scale_factor: float, cfg: trk.TrackerConfig, mapper=None):
+    """Returns step(map_state, ctrl, frame) -> (map_state, ctrl, outcome).
+    `mapper`: a `LocalMapper` whose pass runs inside the step on every frame
+    that creates a keyframe, or None for tracking only."""
     k = trk.make_tracking_kernels(cam, builder, n_levels, scale_factor)
 
     def _empty_matched(frame):
         return torch.full((frame.kp_xy.shape[0],), -1, dtype=torch.int32,
                           device=frame.kp_xy.device)
 
-    def _outcome(state, mode, pose, n_inliers=0, kf_slot=-1):
+    def _outcome(state, mode, pose, n_inliers=0, kf_slot=-1, ba_dropped=0,
+                 ba_esc=False):
         return StepOutcome(
             mode=mode, pose=pose, n_inliers=int(n_inliers),
             kf_created=kf_slot >= 0, kf_slot=kf_slot,
             n_kf=int(torch.sum(state.kf_valid.to(torch.int32))),
-            n_pt=int(state.n_pt), n_kf_alloc=int(state.n_kf))
+            n_pt=int(state.n_pt), n_kf_alloc=int(state.n_kf),
+            ba_lanes_dropped=ba_dropped, ba_escalated=ba_esc)
 
     def _need_new_keyframe(state, frame, matched, n_inl, ref_kf, ctrl) -> bool:
         """`Tracking::NeedNewKeyFrame` — this fork's map-coverage formula
@@ -154,8 +161,19 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
             state3, kf_slot, m3 = k["create_keyframe_rgbd"](
                 state2, frame, pose2, m2, ctrl.frame_id, cfg.th_depth)
 
-        eye = torch.eye(4, dtype=torch.float32, device=pose2.device)
+        # ---- predicated LocalMapping pass ----
         do_kf = kf_slot >= 0
+        recent_start, ba_dropped, ba_esc = ctrl.recent_start, 0, False
+        if mapper is not None and do_kf:
+            n_pt_before = int(state3.n_pt)
+            # mbAbortBA analogue (`src/LocalMapping.cc:118`): keyframes
+            # <= 2 frames apart truncate BA to its first phase
+            abort_ba = (ctrl.frame_id - ctrl.last_kf_frame_id) <= 2
+            state3, ba_dropped, ba_esc = mapper._map_step(
+                state3, kf_slot, ctrl.recent_start, abort_ba)
+            recent_start = n_pt_before
+
+        eye = torch.eye(4, dtype=torch.float32, device=pose2.device)
         ctrl2 = ctrl._replace(
             mode=MODE_OK if ok2 else MODE_LOST,
             pose=pose2 if ok2 else ctrl.pose,
@@ -164,8 +182,10 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
             ref_kf=kf_slot if do_kf else ref2,
             frame_id=ctrl.frame_id + 1,
             last_kf_frame_id=ctrl.frame_id if do_kf else ctrl.last_kf_frame_id,
-            last_matched=m3, last_frame=frame, mb_vo=False)
-        return state3, ctrl2, _outcome(state3, ctrl2.mode, pose2, n_inl, kf_slot)
+            last_matched=m3, last_frame=frame, recent_start=recent_start,
+            mb_vo=False)
+        return state3, ctrl2, _outcome(state3, ctrl2.mode, pose2, n_inl, kf_slot,
+                                       ba_dropped, ba_esc)
 
     def _init_rgbd(state, ctrl: ControlState, frame):
         """`Tracking::StereoInitialization` (`src/Tracking.cc:750-802`) when

@@ -1,11 +1,11 @@
 """System facade — the public API mirroring the reference's `System` class.
 
-Port of `orbslam_mapsave_tpu/pipeline/system.py` for the RGB-D tracking
-slice: `SLAMSystem(cfg, Sensor.RGBD, vocabulary=None,
-enable_mapping=False)` tracks RGB-D frames against a map that grows at
-every keyframe. Local mapping, loop closing, relocalization with a
-vocabulary, map reuse, monocular and stereo input are later slices and
-raise NotImplementedError here.
+Port of `orbslam_mapsave_tpu/pipeline/system.py` for RGB-D tracking and
+local mapping: `SLAMSystem(cfg, Sensor.RGBD)` (no vocabulary) tracks RGB-D
+frames and runs a local-mapping pass (triangulation, fuse, local BA,
+keyframe culling) at every keyframe; `enable_mapping=False` tracks only.
+Loop closing, relocalization with a vocabulary, map reuse, monocular and
+stereo input are later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..io import trajectory as traj_io
 from ..ops import orb
 from ..slammap import mapstate as ms
 from . import frame as frame_mod
-from . import tracking
+from . import local_mapping, tracking
 
 
 class Sensor(enum.Enum):
@@ -34,7 +34,7 @@ class Sensor(enum.Enum):
 def _not_yet(what: str):
     return NotImplementedError(
         f"{what} is not ported to orbslam_mapsave_tpu_torch yet: this "
-        "package runs RGB-D tracking (Sensor.RGBD, enable_mapping=False, no "
+        "package runs RGB-D tracking and local mapping (Sensor.RGBD, no "
         "vocabulary); use orbslam_mapsave_tpu for the rest")
 
 
@@ -50,8 +50,6 @@ class SLAMSystem:
                  enable_mapping: bool = True, device=None):
         if sensor != Sensor.RGBD:
             raise _not_yet(f"{sensor.name} input")
-        if enable_mapping:
-            raise _not_yet("local mapping (enable_mapping=True)")
         if vocabulary is not None:
             raise _not_yet("a vocabulary (loop closing / BoW relocalization)")
         if reuse_map_path:
@@ -83,9 +81,17 @@ class SLAMSystem:
             max_frames=int(c.fps),
             th_depth=float(c.bf) / float(c.fx) * float(c.th_depth),
             local_th=3.0, motion_th=15.0)  # RGB-D (Tracking.cc:1127,1445-1450)
+        self.mapper = (
+            local_mapping.LocalMapper(
+                self.cam, self.builder.inv_level_sigma2,
+                scale_factors=self.builder.scale_factors,
+                n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+            if enable_mapping else None)
+        # the mapping pass runs inside the per-frame step on keyframe frames
         self.tracker = tracking.Tracker(
             self.cam, self.builder, self.map, tcfg,
-            n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+            n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor,
+            mapper=self.mapper)
 
     # ------ frame entry point (System.cc:261-490) ------
     def track_rgbd(self, image, depth, timestamp: float):
@@ -123,6 +129,8 @@ class SLAMSystem:
                 last_matched=torch.where(lm_ >= 0, new_pt[torch.clamp(lm_, min=0).long()],
                                          torch.full_like(lm_, -1)),
                 recent_start=int(self.map.n_pt))
+            if self.mapper is not None:
+                self.mapper.recent_start = int(self.map.n_pt)
             did = True
         if trk.n_kf_watermark > 0.9 * cfg.max_keyframes:
             self.map, new_kf = ms.compact_keyframes(self.map)
@@ -148,6 +156,11 @@ class SLAMSystem:
         trk.ts_epoch = None
         trk.n_pt_watermark = 0
         trk.n_kf_watermark = 0
+        trk.ba_lanes_dropped = 0
+        trk.ba_escalations = 0
+        if self.mapper is not None:
+            self.mapper.recent_start = None
+            self.mapper.ba_lane_log.clear()
 
     # ------ trajectory export (System.cc:675-836) ------
     def save_camera_trajectory(self, path: str | Path):

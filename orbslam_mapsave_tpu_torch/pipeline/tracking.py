@@ -300,7 +300,7 @@ class Tracker:
 
     def __init__(self, cam: projection.Camera, builder: frame_mod.FrameBuilder,
                  state: ms.MapState, cfg: TrackerConfig,
-                 n_levels: int = 4, scale_factor: float = 1.5):
+                 n_levels: int = 4, scale_factor: float = 1.5, mapper=None):
         from . import fused_step
 
         self.cam = cam
@@ -309,7 +309,7 @@ class Tracker:
         self.cfg = cfg
         self.k = make_tracking_kernels(cam, builder, n_levels, scale_factor)
         self.step = fused_step.make_fused_step(cam, builder, n_levels,
-                                               scale_factor, cfg)
+                                               scale_factor, cfg, mapper)
         self.ctrl: fused_step.ControlState | None = None
         self.state = NO_IMAGES_YET
         self.ref_kf = 0  # reference KF of the LOST-mode retry (as in JAX)
@@ -321,6 +321,10 @@ class Tracker:
         self.needs_reset = False  # lost-after-init ladder (Tracking.cc:712-718)
         self.n_pt_watermark = 0
         self.n_kf_watermark = 0
+        # local-BA lane telemetry: lanes dropped even after O_BA_ESC
+        # escalation, and the number of escalated mapping steps
+        self.ba_lanes_dropped = 0
+        self.ba_escalations = 0
 
     @property
     def trajectory(self) -> list[tuple[float, np.ndarray, bool]]:
@@ -341,6 +345,8 @@ class Tracker:
         self._trajectory.append((t, out.pose.cpu().numpy(), lost))
         self.n_pt_watermark = out.n_pt
         self.n_kf_watermark = out.n_kf_alloc
+        self.ba_lanes_dropped += out.ba_lanes_dropped
+        self.ba_escalations += int(out.ba_escalated)
         self.state = {1: NOT_INITIALIZED, 2: OK, 3: LOST}.get(out.mode, out.mode)
         if self.state == LOST and out.n_kf <= 5:
             self.needs_reset = True

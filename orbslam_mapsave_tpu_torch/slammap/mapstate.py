@@ -1,7 +1,7 @@
 """Fixed-capacity structure-of-arrays SLAM map state.
 
 Port of `orbslam_mapsave_tpu/slammap/mapstate.py` (the subset the RGB-D
-tracking path uses): the reference's pointer-graph map (`Map` + `KeyFrame`
+tracking and local-mapping paths use): the reference's pointer-graph map (`Map` + `KeyFrame`
 + `MapPoint`) as ONE NamedTuple of padded tensors with validity masks.
 Object identity = array slot. Updates are functional — every function
 returns a new MapState and leaves its input untouched, as in the JAX
@@ -251,28 +251,88 @@ def add_observations(state: MapState, kf_slot: int, pt_slots: torch.Tensor,
     pt_obs_kf[pt] (`MapPoint::AddObservation` + `KeyFrame::AddMapPoint`).
     pt_slots must be unique within a call; a point with no free lane is
     counted in n_obs_dropped."""
-    P = state.pt_capacity
-    ok = ok & (pt_slots >= 0)
-    safe_pt = torch.where(ok, pt_slots, torch.full_like(pt_slots, P - 1)).long()
-    safe_ft = torch.where(ok, feat_idx, torch.full_like(feat_idx, state.n_features - 1)).long()
-    new_fwd = set_rows(state.kf_kp_point[kf_slot], feat_idx, pt_slots, ok)
-    kf_kp_point = state.kf_kp_point.clone()
-    kf_kp_point[kf_slot] = new_fwd
-    obs_rows = state.pt_obs_kf[safe_pt]  # (B,MAX_OBS)
-    free = obs_rows < 0
-    free_lane = torch.argmax(free.to(torch.int8), dim=-1)
-    has_free = free.any(dim=-1)
-    okf = ok & has_free
-    kf_col = torch.full_like(pt_slots, int(kf_slot))
-    oct_b = state.kf_kp_octave[kf_slot][safe_ft].to(torch.int8)
-    dropped = torch.sum((ok & ~has_free).to(torch.int32))
+    return add_observations_rows(state, torch.full_like(pt_slots, int(kf_slot)),
+                                 pt_slots, feat_idx, ok)
+
+
+def _reverse_append(state: MapState, kf_rows: torch.Tensor, pt_slots: torch.Tensor,
+                    feat_idx: torch.Tensor, okk: torch.Tensor,
+                    lane: torch.Tensor, okf: torch.Tensor) -> MapState:
+    """Shared tail of the add_observations variants: forward refs at
+    (kf_rows, feat_idx) where okk, reverse entries at (pt_slots, lane) where
+    okf, octaves copied from the keyframe; rows with okk but not okf count
+    in n_obs_dropped."""
+    K = state.kf_capacity
+    safe_kf = torch.where(okk, kf_rows, torch.full_like(kf_rows, K - 1)).long()
+    safe_ft = torch.where(okk, feat_idx,
+                          torch.full_like(feat_idx, state.n_features - 1)).long()
+    oct_b = state.kf_kp_octave[safe_kf, safe_ft].to(torch.int8)
+    dropped = torch.sum((okk & ~okf).to(torch.int32))
     return state._replace(
-        kf_kp_point=kf_kp_point,
-        pt_obs_kf=set_rows(state.pt_obs_kf, pt_slots, kf_col, okf, free_lane),
-        pt_obs_idx=set_rows(state.pt_obs_idx, pt_slots, feat_idx, okf, free_lane),
-        pt_obs_oct=set_rows(state.pt_obs_oct, pt_slots, oct_b, okf, free_lane),
+        kf_kp_point=set_rows(state.kf_kp_point, kf_rows, pt_slots, okk, safe_ft),
+        pt_obs_kf=set_rows(state.pt_obs_kf, pt_slots, kf_rows, okf, lane),
+        pt_obs_idx=set_rows(state.pt_obs_idx, pt_slots, feat_idx, okf, lane),
+        pt_obs_oct=set_rows(state.pt_obs_oct, pt_slots, oct_b, okf, lane),
         n_obs_dropped=(state.n_obs_dropped + dropped).to(torch.int32),
     )
+
+
+def add_observations_rows(state: MapState, kf_rows: torch.Tensor,
+                          pt_slots: torch.Tensor, feat_idx: torch.Tensor,
+                          ok: torch.Tensor) -> MapState:
+    """`add_observations` with a different keyframe per row (batched
+    triangulation: each new point's second observation lives in the
+    neighbour that produced the match). pt_slots and (kf, feat) pairs must
+    be unique within a call."""
+    P = state.pt_capacity
+    okk = ok & (pt_slots >= 0) & (kf_rows >= 0)
+    safe_pt = torch.where(okk, pt_slots, torch.full_like(pt_slots, P - 1)).long()
+    free = state.pt_obs_kf[safe_pt] < 0  # (B,MAX_OBS)
+    lane = torch.argmax(free.to(torch.int8), dim=-1)
+    return _reverse_append(state, kf_rows, pt_slots, feat_idx, okk, lane,
+                           okk & free.any(dim=-1))
+
+
+def add_observations_rows_dup(state: MapState, kf_rows: torch.Tensor,
+                              pt_slots: torch.Tensor, feat_idx: torch.Tensor,
+                              ok: torch.Tensor) -> MapState:
+    """`add_observations_rows` that permits repeated pt_slots: the rows of
+    one point take its 1st, 2nd, ... free lanes in row order (rank within
+    the point's group of a stable sort by slot). Needed by the combined
+    reverse fuse, where a point may join several neighbours in one step.
+    (kf, feat) pairs must still be unique. Past 4096 live rows the rest
+    are dropped, as in the JAX version."""
+    P = state.pt_capacity
+    okk = ok & (pt_slots >= 0) & (kf_rows >= 0)
+    cap = 4096
+    if pt_slots.shape[0] > cap:
+        sel = compact_indices(okk, cap)
+        selok = sel >= 0
+        ss = torch.clamp(sel, min=0).long()
+        kf_rows = torch.where(selok, kf_rows[ss], torch.full_like(sel, -1))
+        pt_slots = torch.where(selok, pt_slots[ss], torch.full_like(sel, -1))
+        feat_idx = torch.where(selok, feat_idx[ss], torch.zeros_like(sel))
+        okk = selok & (pt_slots >= 0) & (kf_rows >= 0)
+    B = pt_slots.shape[0]
+    idx = torch.arange(B, dtype=torch.int32, device=pt_slots.device)
+    key = torch.where(okk, pt_slots, torch.full_like(pt_slots, P))
+    sorted_key, order = torch.sort(key, stable=True)
+    new_group = torch.cat([torch.ones_like(okk[:1]), sorted_key[1:] != sorted_key[:-1]])
+    group_start = torch.cummax(torch.where(new_group, idx, torch.zeros_like(idx)), 0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - group_start  # order is a permutation: unique writes
+    safe_pt = torch.where(okk, pt_slots, torch.full_like(pt_slots, P - 1)).long()
+    free = state.pt_obs_kf[safe_pt] < 0
+    cumfree = torch.cumsum(free.to(torch.int32), dim=-1)
+    hit = free & (cumfree == (rank + 1)[:, None])
+    lane = torch.argmax(hit.to(torch.int8), dim=-1)
+    return _reverse_append(state, kf_rows, pt_slots, feat_idx, okk, lane,
+                           okk & hit.any(dim=-1))
+
+
+def point_obs_count(state: MapState) -> torch.Tensor:
+    """(P,) number of observations per point (`MapPoint::Observations`)."""
+    return torch.sum((state.pt_obs_kf >= 0).to(torch.int32), dim=-1)
 
 
 def compact_indices(flag: torch.Tensor, cap: int) -> torch.Tensor:
@@ -285,6 +345,99 @@ def compact_indices(flag: torch.Tensor, cap: int) -> torch.Tensor:
     out = torch.full((cap,), -1, dtype=torch.int32, device=flag.device)
     return set_rows(out, pos, torch.arange(n, dtype=torch.int32,
                                             device=flag.device), ok)
+
+
+def unique_compact_ids(ids: torch.Tensor, sentinel: int, cap: int,
+                       valid_of: torch.Tensor | None = None) -> torch.Tensor:
+    """Unique valid ids compacted ascending into (cap,), -1 padded; past
+    cap the largest ids drop. `sentinel` must exceed every valid id."""
+    ok = ids >= 0
+    if valid_of is not None:
+        ok = ok & valid_of[torch.clamp(ids, min=0).long()]
+    key = torch.sort(torch.where(ok, ids, torch.full_like(ids, sentinel))).values
+    uniq = torch.cat([torch.ones_like(ok[:1]), key[1:] != key[:-1]]) & (key < sentinel)
+    out = torch.sort(torch.where(uniq, key, torch.full_like(key, sentinel))).values[:cap]
+    return torch.where(out < sentinel, out, torch.full_like(out, -1))
+
+
+def erase_points(state: MapState, pt_mask: torch.Tensor) -> MapState:
+    """Soft-delete points where pt_mask (`MapPoint::SetBadFlag`): validity,
+    every forward reference and the reverse rows are cleared."""
+    fwd = state.kf_kp_point
+    bad_ref = (fwd >= 0) & pt_mask[torch.clamp(fwd, min=0).long()]
+    m = pt_mask[:, None]
+    return state._replace(
+        pt_valid=state.pt_valid & ~pt_mask,
+        kf_kp_point=torch.where(bad_ref, torch.full_like(fwd, -1), fwd),
+        pt_obs_kf=torch.where(m, torch.full_like(state.pt_obs_kf, -1), state.pt_obs_kf),
+        pt_obs_idx=torch.where(m, torch.full_like(state.pt_obs_idx, -1), state.pt_obs_idx),
+        pt_obs_oct=torch.where(m, torch.full_like(state.pt_obs_oct, -1), state.pt_obs_oct),
+    )
+
+
+def merge_points(state: MapState, src: torch.Tensor, dst: torch.Tensor,
+                 ok: torch.Tensor, cap: int = 1024) -> MapState:
+    """`MapPoint::Replace` parity: every observation of src[i] moves to
+    dst[i]; where the observing KF already sees dst, the duplicate forward
+    match is erased instead; src is soft-deleted and its visible/found
+    counts add to dst's. src slots must be unique, dst slots unique and
+    disjoint from src (the callers deduplicate). Past `cap` live pairs the
+    rest wait for a later call, as in the JAX version."""
+    P = state.pt_capacity
+    K = state.kf_capacity
+    ok = ok & (src >= 0) & (dst >= 0) & (src != dst)
+    if src.shape[0] > cap:
+        sel = compact_indices(ok, cap)
+        selok = sel >= 0
+        ss = torch.clamp(sel, min=0).long()
+        src = torch.where(selok, src[ss], torch.full_like(sel, -1))
+        dst = torch.where(selok, dst[ss], torch.full_like(sel, -1))
+        ok = selok & (src >= 0)
+    safe_src = torch.where(ok, src, torch.full_like(src, P - 1)).long()
+    safe_dst = torch.where(ok, dst, torch.full_like(dst, P - 1)).long()
+    s_kf = torch.where(ok[:, None], state.pt_obs_kf[safe_src],
+                       torch.full_like(state.pt_obs_kf[safe_src], -1))  # (B,O)
+    s_ix = state.pt_obs_idx[safe_src]
+    s_oc = state.pt_obs_oct[safe_src]
+    d_kf = state.pt_obs_kf[safe_dst]
+    s_live = s_kf >= 0
+    # src observations whose KF already observes dst are duplicates
+    dup = ((s_kf[:, :, None] == d_kf[:, None, :]) & s_live[..., None]).any(-1)
+    move = s_live & ~dup
+    # forward pointers: moved -> dst, duplicates -> -1; (kf, feat) pairs of
+    # live lanes are unique (src unique, forward map single-valued)
+    tgt = torch.where(move, safe_dst[:, None].to(torch.int32),
+                      torch.full_like(s_kf, -1))
+    fwd = set_rows(state.kf_kp_point, s_kf, tgt, s_live, torch.clamp(s_ix, min=0))
+    # dst rows: append the moved lanes, valid entries first (stable), cut
+    # to MAX_OBS; what falls off counts in n_obs_dropped
+    comb_kf = torch.cat([d_kf, torch.where(move, s_kf, torch.full_like(s_kf, -1))], 1)
+    comb_ix = torch.cat([state.pt_obs_idx[safe_dst],
+                         torch.where(move, s_ix, torch.full_like(s_ix, -1))], 1)
+    comb_oc = torch.cat([state.pt_obs_oct[safe_dst],
+                         torch.where(move, s_oc, torch.full_like(s_oc, -1))], 1)
+    order = torch.argsort((comb_kf < 0).to(torch.int8), dim=1, stable=True)
+    comb_kf = torch.gather(comb_kf, 1, order)
+    n_dropped = torch.sum((comb_kf[:, MAX_OBS:] >= 0).to(torch.int32))
+    comb_ix = torch.gather(comb_ix, 1, order)[:, :MAX_OBS]
+    comb_oc = torch.gather(comb_oc, 1, order)[:, :MAX_OBS]
+    comb_kf = comb_kf[:, :MAX_OBS]
+    vis = state.pt_visible[safe_dst] + state.pt_visible[safe_src]
+    fnd = state.pt_found[safe_dst] + state.pt_found[safe_src]
+    src_mask = set_rows(torch.zeros(P, dtype=torch.bool, device=state.device),
+                        src, torch.ones_like(ok), ok)
+    m = src_mask[:, None]
+    return state._replace(
+        kf_kp_point=fwd,
+        pt_obs_kf=torch.where(m, -1, set_rows(state.pt_obs_kf, dst, comb_kf, ok)),
+        pt_obs_idx=torch.where(m, -1, set_rows(state.pt_obs_idx, dst, comb_ix, ok)),
+        pt_obs_oct=torch.where(m, torch.full_like(state.pt_obs_oct, -1),
+                               set_rows(state.pt_obs_oct, dst, comb_oc, ok)),
+        pt_visible=set_rows(state.pt_visible, dst, vis, ok),
+        pt_found=set_rows(state.pt_found, dst, fnd, ok),
+        pt_valid=state.pt_valid & ~src_mask,
+        n_obs_dropped=(state.n_obs_dropped + n_dropped).to(torch.int32),
+    )
 
 
 def update_connections(state: MapState, kf_slot: int) -> MapState:

@@ -1,6 +1,7 @@
 """The port never reaches for jax or the JAX package: in a fresh process
 where both are unimportable, import every module of
-orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU."""
+orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU; and no
+source line of the port or of chip_smoke.py imports either."""
 
 import subprocess
 import sys
@@ -46,8 +47,10 @@ def test_port_runs_without_jax():
 
 
 def test_sources_name_no_jax():
+    """Neither the port package nor chip_smoke.py (which runs on the card,
+    where jax is not installed) imports jax or the JAX package."""
     pkg = ROOT / "orbslam_mapsave_tpu_torch"
-    for f in pkg.rglob("*.py"):
+    for f in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), f

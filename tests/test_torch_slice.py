@@ -1,9 +1,15 @@
-"""The RGB-D tracking slice end to end: `SLAMSystem(cfg, RGBD,
-enable_mapping=False)` with no vocabulary, in the JAX package and in the
-port, on the sequence of `test_rgbd_slam.py` (320x240, 10 frames, 600 ORB
-features, 32 keyframe / 8192 point capacity). Frame by frame: the same
-lost flags, the same keyframe frames, the same point count, poses within
-1e-4."""
+"""The RGB-D slice end to end, in the JAX package and in the port, with no
+vocabulary (320x240, 600 ORB features, 32 keyframe / 8192 point capacity).
+
+Tracking only (`enable_mapping=False`), on the sequence of
+`test_rgbd_slam.py` (10 frames): frame by frame the same lost flags, the
+same keyframe frames, the same point count, poses within 1e-4.
+
+Tracking + local mapping (the default), on a 14-frame orbit with a wider
+yaw on which the JAX package makes keyframes at frames 0, 4, 7 and 13, so
+local BA and keyframe culling run at frames 7 and 13: frame by frame the
+same lost flags, keyframe frames, keyframe and point counts, poses within
+1e-3."""
 
 import numpy as np
 import pytest
@@ -32,7 +38,7 @@ def seq(tmp_path_factory):
     return {"root": out, "poses": poses}
 
 
-def _system(cfg_mod, sys_mod, max_points=8192, **kw):
+def _system(cfg_mod, sys_mod, max_points=8192, enable_mapping=False, **kw):
     cfg = cfg_mod.SystemConfig()
     cfg.camera = cfg_mod.CameraConfig(
         fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H,
@@ -42,7 +48,7 @@ def _system(cfg_mod, sys_mod, max_points=8192, **kw):
     cfg.max_keyframes = 32
     cfg.max_points = max_points
     return sys_mod.SLAMSystem(cfg, sys_mod.Sensor.RGBD, vocabulary=None,
-                              enable_loop_closing=False, enable_mapping=False,
+                              enable_loop_closing=False, enable_mapping=enable_mapping,
                               **kw)
 
 
@@ -187,7 +193,7 @@ def test_device_defaults_to_the_card(monkeypatch):
     assert ts.map.pt_pos.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(enable_mapping=True),
+@pytest.mark.parametrize("kw", [dict(enable_mapping=True, vocabulary=object()),
                                 dict(enable_mapping=False, vocabulary=object()),
                                 dict(enable_mapping=False, reuse_map_path="m.bin")])
 def test_unported_options_raise(kw):
@@ -197,3 +203,60 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         tsys.SLAMSystem(cfg, tsys.Sensor.MONOCULAR, enable_mapping=False,
                         device="cpu")
+
+
+@pytest.fixture(scope="module")
+def mapping_runs(tmp_path_factory):
+    """Both systems with mapping over the 14-frame orbit; the port's local
+    BA and keyframe culling calls are counted."""
+    from orbslam_mapsave_tpu_torch.optim import local_ba
+    from orbslam_mapsave_tpu_torch.pipeline import local_mapping
+
+    out = tmp_path_factory.mktemp("rgbd_seq_mapping")
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    poses = synthetic.orbit_trajectory(14, radius=0.4, yaw_range=1.6)
+    synthetic.write_tum_sequence(out, K, poses, width=W, height=H, seed=5,
+                                 depth_factor=5000.0)
+    calls = {"ba": 0, "cull": 0}
+    ba, cull = local_ba.local_bundle_adjustment, local_mapping.keyframe_culling
+
+    def counted(name, fn):
+        def f(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return f
+
+    local_ba.local_bundle_adjustment = counted("ba", ba)
+    local_mapping.keyframe_culling = counted("cull", cull)
+    try:
+        js = _system(jcfg, jsys, enable_mapping=True)
+        ts = _system(tcfg, tsys, enable_mapping=True, device="cpu")
+        rows = []
+        for t, gray, depth in dataset.TUMDataset(out, depth_factor=5000.0):
+            js.track_rgbd(gray, depth, t)
+            js.tracker.flush()
+            ts.track_rgbd(gray, depth, t)
+            rows.append(dict(j=js.tracker.trajectory[-1], t=ts.tracker.trajectory[-1],
+                             jn=(js.n_keyframes, js.n_points),
+                             tn=(ts.n_keyframes, ts.n_points)))
+    finally:
+        local_ba.local_bundle_adjustment, local_mapping.keyframe_culling = ba, cull
+    return js, ts, rows, calls
+
+
+def test_mapping_frame_by_frame(mapping_runs):
+    js, ts, rows, calls = mapping_runs
+    assert len(rows) == 14 and not any(r["t"][2] for r in rows)
+    for i, r in enumerate(rows):
+        (tj, pj, lj), (tt, pt, lt) = r["j"], r["t"]
+        assert tj == tt and lj == lt, i
+        assert r["jn"] == r["tn"], (i, r["jn"], r["tn"])
+        assert np.abs(pj - pt).max() <= 1e-3, (i, np.abs(pj - pt).max())
+    jv = np.asarray(js.map.kf_valid)
+    np.testing.assert_array_equal(np.asarray(js.map.kf_frame_id)[jv],
+                                  ts.map.kf_frame_id.numpy()[ts.map.kf_valid.numpy()])
+    assert int(jv.sum()) >= 4
+    # local BA and keyframe culling ran at every keyframe after the second
+    assert calls["ba"] == calls["cull"] == int(jv.sum()) - 2
+    assert ts.tracker.ba_lanes_dropped == js.tracker.ba_lanes_dropped == 0
+    assert ts.mapper.recent_start is None and ts.tracker.ctrl.recent_start > 0
