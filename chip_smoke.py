@@ -37,18 +37,40 @@ no result):
               on the card (bit-identical) and once on the CPU: poses and
               points within 1e-3, the same kf_valid, live points within
               0.5%; the differences are printed.
-7. profile  — a torch.profiler trace of 10 pose-LM calls shows 10 device
+7. loop     — bench.py's headline workload: SLAMSystem with a vocabulary
+              trained from the sequence (bench.py:88-107) and loop closing
+              on; one full untimed pass, flush_gba(), reset(), then the
+              timed pass, as a user runs it: no frame lost, the JAX CPU
+              run's loop count, keyframes within 20%, keyframe ATE within
+              1 cm, one pose-LM launch per pose optimization, every loop's
+              global-BA job applied, no BA lane dropped; frames/s,
+              p50/p99/max ms per frame. Then reset() and one more untimed
+              pass with each loop stage wrapped from here (ms, host clock,
+              synced) and the first loop correction's inputs kept; it must
+              close the same loops.
+8. loop replay — the first loop correction from its captured inputs
+              (correction, essential graph, one global-BA iteration) twice
+              on the card (bit-identical) and once on the CPU: poses and
+              points within 1e-3, equal kf_valid and loop edges. Then the
+              essential graph's solve on its live edges from perturbed
+              start poses (the loop closer's own solve returns its input):
+              twice on the card (bit-identical), once on the CPU, Sim3
+              poses within 1e-4 and moved by more than that.
+9. profile  — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
-              phase-6 state: its device kernels, host reads (stream syncs)
-              and top device operations (last: a profile slows later
-              launches).
+              phase-6 state and the loop stages of the phase-8 correction
+              (Sim3 chain, correction, essential graph, one GBA iteration):
+              device kernels, host reads (stream syncs) and top device
+              operations (last: a profile slows later launches).
 
-The last lines are a JSON record of the kernels, the card's
-`nvidia-smi` name/power line, and {"ok": true, "device": {...}}.
+The last lines are the loop slice's summary, a JSON record of the kernels
+(`launches` from the loop slice), the card's `nvidia-smi` name/power line,
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -69,12 +91,24 @@ JAX_CPU_KF_ATE_M = 0.023118204057347373
 # lanes dropped:
 JAX_CPU_MAPPING_KEYFRAMES = 23
 JAX_CPU_MAPPING_KF_ATE_M = 0.04588471254948784
+# bench.py's headline configuration (a vocabulary trained from the
+# sequence, loop closing on), with the tracker's outcomes read every frame
+# as the port reads them (`--loop`, fetch_every = 1): 0 lost, 1 loop (query
+# keyframe at frame 217, match at frame 37, 962 Sim3 inliers), 26,168
+# points. At the JAX default cadence (16 frames) the same loop closes with
+# 961 inliers, 23 keyframes, kf ATE 0.008217 m.
+JAX_CPU_LOOP_N_WORDS = 9640
+JAX_CPU_LOOP_KEYFRAMES = 23
+JAX_CPU_LOOP_KF_ATE_M = 0.008675051457092587
+JAX_CPU_LOOP_EVENTS = [(217, 37)]  # (query, match) keyframes' frame ids
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
 WARMUP_FRAMES = 24  # untimed frames before each slice; reach a third keyframe
 W, H = 640, 480
 POSE_TOL = 1e-4  # kernel vs plain: f32 sums in another order
 GATE_REL = 1e-4  # an inlier may flip only this close (relative) to its gate
+ESSENTIAL_TOL = 1e-4  # essential-graph Sim3 poses, card vs CPU
+ESSENTIAL_SEED = 5  # the start poses of the essential-graph check
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
@@ -380,7 +414,7 @@ def bench_sequence():
     return poses, frames
 
 
-def _bench_system(dev, enable_mapping: bool):
+def _bench_system(dev, enable_mapping: bool, vocabulary=None):
     from orbslam_mapsave_tpu_torch import config as cfg_mod
     from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
@@ -392,14 +426,16 @@ def _bench_system(dev, enable_mapping: bool):
     cfg.max_keypoints = 2048
     cfg.max_keyframes = 64
     cfg.max_points = 32768
-    return system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD,
+    return system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=vocabulary,
                                  enable_mapping=enable_mapping, device=dev)
 
 
-def _run_slice(slam, seq, name: str, on_start=None) -> dict:
-    """Warm up, reset, then drive the whole sequence through the system with
-    the pose-LM launch counter zeroed (and on_start called) just before;
-    one device sync per frame. Returns the run's numbers."""
+def _run_slice(slam, seq, name: str, on_start=None, warmup: int = WARMUP_FRAMES) -> dict:
+    """Warm up over `warmup` frames, flush, reset, then drive the whole
+    sequence through the system with the pose-LM launch counter zeroed (and
+    on_start called) just before; one device sync per frame, and the
+    pending loop-closing work flushed at the end (inside the wall time, as
+    bench.py). Returns the run's numbers."""
     from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
     from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
 
@@ -409,8 +445,9 @@ def _run_slice(slam, seq, name: str, on_start=None) -> dict:
     # so with mapping the warm-up runs one local BA: the cuBLAS/cuSOLVER
     # handles, the first 384x384 Cholesky and the allocator's first blocks
     # for the BA tables all fall outside the timed run
-    for i in range(WARMUP_FRAMES):
+    for i in range(warmup):
         slam.track_rgbd(*frames[i], stamps[i])
+    slam.flush_gba()
     warmup_keyframes = slam.n_keyframes
     slam.reset()
     torch.cuda.synchronize()
@@ -438,6 +475,8 @@ def _run_slice(slam, seq, name: str, on_start=None) -> dict:
             frame_ms[i] = 1e3 * (time.perf_counter() - t1)
             if pose.shape != (4, 4) or not np.isfinite(pose).all():
                 raise AssertionError(f"frame {i}: bad pose {pose}")
+        slam.flush_gba()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
     finally:
         pose_opt.pose_optimization = dispatch
@@ -450,7 +489,7 @@ def _run_slice(slam, seq, name: str, on_start=None) -> dict:
     tracked = N_FRAMES - 1 - len(lost)  # frame 0 initializes the map
     res = dict(frames=N_FRAMES, fps=N_FRAMES / wall,
                p50_ms=float(np.percentile(frame_ms, 50)),
-               p99_ms=float(np.percentile(frame_ms, 99)),
+               p99_ms=float(np.percentile(frame_ms, 99)), max_ms=float(frame_ms.max()),
                keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=kf_ate,
                lost=len(lost), pose_optimizations=calls, launches=launches,
                ba_lanes_dropped=slam.tracker.ba_lanes_dropped,
@@ -518,13 +557,45 @@ def phase_mapping(dev, seq) -> tuple[dict, object, tuple]:
     return res, mapper, captured[0]
 
 
+@contextlib.contextmanager
+def _patched(patches: list):
+    """Set each (object, attribute, value) of `patches` for the duration of
+    the block; a method patched on an instance is dropped afterwards, any
+    other attribute restored."""
+    saved = [(obj, name, getattr(obj, name), name in vars(obj)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value, own in saved:
+            if own:  # a module's, class's or namespace's attribute
+                setattr(obj, name, value)
+            else:  # a method: drop the instance attribute that shadows it
+                delattr(obj, name)
+
+
+def _synced(fn, label: str, into: list):
+    """fn with a device sync before and after, appending (label, host-clock
+    ms) to `into` at each call."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        into.append((label, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    return run
+
+
 def _map_step_stages(mapper, captured) -> dict:
     """Host-clock ms of each stage of one replayed mapping step (a device
     sync before and after each), and the LM iterations its BA ran."""
     from orbslam_mapsave_tpu_torch.optim import local_ba
     from orbslam_mapsave_tpu_torch.pipeline import local_mapping as lm
 
-    ms_ = {}
+    timed: list = []
     iters = [0]
     targets = [(lm, "recent_point_culling", "recent culling"),
                (mapper.tri, "batched", "triangulation"),
@@ -534,40 +605,23 @@ def _map_step_stages(mapper, captured) -> dict:
                (lm.ms, "update_connections", "covisibility updates"),
                (mapper, "_ba", "local BA"),
                (lm, "keyframe_culling", "keyframe culling")]
-    saved = []
-    for obj, name, label in targets:
-        fn = getattr(obj, name)
-        saved.append((obj, name, fn, name in vars(obj)))
-
-        def timed(*a, _fn=fn, _label=label, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            ms_[_label] = ms_.get(_label, 0.0) + 1e3 * (time.perf_counter() - t0)
-            return out
-
-        setattr(obj, name, timed)
     step_fn = local_ba._build_and_solve
 
     def counted(*a, **k):
         iters[0] += 1
         return step_fn(*a, **k)
 
-    local_ba._build_and_solve = counted
-    try:
+    patches = [(obj, name, _synced(getattr(obj, name), label, timed))
+               for obj, name, label in targets]
+    with _patched(patches + [(local_ba, "_build_and_solve", counted)]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mapper._map_step(*captured)
         torch.cuda.synchronize()
         total = 1e3 * (time.perf_counter() - t0)
-    finally:
-        local_ba._build_and_solve = step_fn
-        for obj, name, fn, own in saved:
-            if own:  # a module's or namespace's attribute
-                setattr(obj, name, fn)
-            else:  # a method: drop the instance attribute that shadows it
-                delattr(obj, name)
+    ms_: dict = {}
+    for label, t in timed:
+        ms_[label] = ms_.get(label, 0.0) + t
     ms_["rest"] = total - sum(ms_.values())
     return dict(total_ms=total, stages_ms=ms_, lm_iterations=iters[0])
 
@@ -610,46 +664,321 @@ def phase_map_step(mapper, captured) -> dict:
     return diff
 
 
-def phase_profile_map_step(mapper, captured) -> dict:
-    """One mapping step under torch.profiler (after one unprofiled-range
-    step inside the same profile): device kernels, host reads (stream
-    syncs) and the top device operations of the second step."""
+def train_vocabulary(slam, seq):
+    """bench.py's vocabulary (`bench.py:88-107`): the descriptors of frames
+    0, 12, ..., 228 from the system's own FrameBuilder, k = 10, L = 4,
+    seed 1."""
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    t0 = time.perf_counter()
+    _, frames = seq
+    descs = []
+    for i in range(0, N_FRAMES, 12):
+        fr = slam.builder.build(frames[i][0], 1000.0 + i / 30.0, frames[i][1])
+        descs.append(fr.desc[fr.valid].cpu().numpy())
+    voc = vocabulary.train(np.concatenate(descs), k=10, L=4, seed=1)
+    log(f"[loop] vocabulary: {voc.n_words} words (JAX, CPU: {JAX_CPU_LOOP_N_WORDS}) "
+        f"from {sum(len(d) for d in descs)} descriptors in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return voc
+
+
+def _stage_summary(stage_ms: list) -> dict:
+    out: dict = {}
+    for name, ms_ in stage_ms:
+        out.setdefault(name, []).append(round(ms_, 3))
+    return out
+
+
+def _loop_events(slam) -> list:
+    fid = slam.map.kf_frame_id.cpu().numpy()
+    return [(int(fid[e.query_kf]), int(fid[e.match_kf])) for e in slam.loop_closer.events]
+
+
+def _loop_stage_pass(slam, seq) -> tuple[dict, dict]:
+    """Another, untimed pass of the loop slice (after reset()) with each
+    loop stage wrapped from here: a device sync before and after it and its
+    host-clock ms recorded; the inputs of the first loop correction are kept
+    for the replay. The timed pass runs none of this. Returns (ms per stage
+    call, captured correction inputs)."""
+    from orbslam_mapsave_tpu_torch.optim import global_ba
+    from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
+    from orbslam_mapsave_tpu_torch.pipeline import loop_closing
+
+    lc = slam.loop_closer
+    timed, captured = [], []
+    correct_loop = lc._correct_loop
+
+    def capture(state, kf, match_kf, S, matched_pt, loop_pts):
+        if not captured:
+            captured.append(dict(state=type(state)(*[x.clone() for x in state]), kf=kf,
+                                 match_kf=match_kf, S=S, matched_pt=matched_pt,
+                                 loop_pts=loop_pts))
+        return correct_loop(state, kf, match_kf, S, matched_pt, loop_pts)
+
+    stages = [(lc, "compute_bow", "bow"), (loop_closing, "_detect_device", "detect"),
+              (lc, "_sim3_chain", "sim3 lane"), (lc, "_correct", "correct"),
+              (lc, "_essential", "essential"), (global_ba, "gba_init", "gba_init"),
+              (global_ba, "gba_iterate", "gba_iter"), (gba_mod, "_apply_device", "gba_apply")]
+    patches = [(obj, name, _synced(getattr(obj, name), label, timed))
+               for obj, name, label in stages]
+    _, frames = seq
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    slam.reset()
+    with _patched(patches + [(lc, "_correct_loop", capture)]):
+        for i in range(N_FRAMES):
+            slam.track_rgbd(*frames[i], stamps[i])
+        slam.flush_gba()
+    if not captured:
+        raise AssertionError("the stage pass closed no loop")
+    return _stage_summary(timed), captured[0]
+
+
+def phase_loop(dev, seq) -> tuple[dict, object, dict]:
+    """bench.py's headline workload: SLAMSystem with a vocabulary and loop
+    closing on. One full untimed pass, flush_gba(), reset() (bench.py:141-146),
+    then the timed pass, as a user runs it. Then one more pass, untimed,
+    times every loop stage and keeps the first loop correction's inputs."""
+    voc = train_vocabulary(_bench_system(dev, True), seq)
+    slam = _bench_system(dev, True, vocabulary=voc)
+    lc = slam.loop_closer
+    res = _run_slice(slam, seq, "loop", warmup=N_FRAMES)
+    events = _loop_events(slam)
+    res.update(loops=len(lc.events), events=events,
+               inliers=[e.n_inliers for e in lc.events], gba_applied=lc.gba_applied,
+               gba_aborted=lc.gba_aborted, n_words=voc.n_words)
+    log(f"[loop] events (query, match frame ids): {events}, JAX CPU: {JAX_CPU_LOOP_EVENTS}; "
+        f"inliers {res['inliers']}; GBA jobs applied {lc.gba_applied}, aborted "
+        f"{lc.gba_aborted}")
+    _check_quality(res, JAX_CPU_LOOP_KEYFRAMES, JAX_CPU_LOOP_KF_ATE_M)
+    if res["loops"] != len(JAX_CPU_LOOP_EVENTS):
+        raise AssertionError(f"{res['loops']} loops vs JAX CPU {len(JAX_CPU_LOOP_EVENTS)}")
+    if lc.gba_applied != res["loops"] or lc.gba_aborted:
+        raise AssertionError(f"GBA jobs: {lc.gba_applied} applied, {lc.gba_aborted} aborted "
+                             f"for {res['loops']} loops")
+    if res["ba_lanes_dropped"] != 0:
+        raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
+    stages, cap = _loop_stage_pass(slam, seq)
+    log("[loop] stage ms of the untimed stage pass (host clock, synced): "
+        + json.dumps(stages))
+    if _loop_events(slam) != events:
+        raise AssertionError(f"the stage pass closed loops {_loop_events(slam)}, "
+                             f"the timed pass {events}")
+    res["stages_ms"] = stages
+    return res, lc, cap
+
+
+def _correction_inputs(cap: dict, dev) -> tuple:
+    """(map, query slot, match slot, (S, matched points, loop points)) of a
+    captured loop correction, copied to dev."""
+    st = type(cap["state"])(*[x.to(dev).clone() for x in cap["state"]])
+    return st, cap["kf"], cap["match_kf"], tuple(
+        cap[k].to(dev) for k in ("S", "matched_pt", "loop_pts"))
+
+
+def _loop_replay(lc, cap: dict, dev) -> tuple:
+    """The first loop correction from its captured inputs on dev: the
+    correction, the essential graph and one global-BA iteration from the
+    corrected map. Returns (map after the correction, map after the
+    essential graph, GBA poses, GBA points)."""
+    from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
+
+    st, kf, mkf, args = _correction_inputs(cap, dev)
+    corrected = lc._correct(st, kf, mkf, *args)
+    st = lc._essential(corrected, kf, mkf)
+    job = gba_mod.GBAJob(st, lc.cam, lc._t(dev)[1], n_iters=1)
+    job.pump(1)
+    return corrected, st, job._carry[0], job._carry[1]
+
+
+def _live_edges(prob):
+    """The pose-graph problem with its dead edge lanes cut out."""
+    live = prob.edge_valid
+    return prob._replace(**{k: getattr(prob, k)[live] for k in (
+        "edge_i", "edge_j", "edge_meas", "edge_valid", "edge_weight")})
+
+
+def _essential_solve(corrected, kf: int, mkf: int) -> dict:
+    """The essential graph's solve at the bench's shapes, on a problem that
+    makes it work. In the loop closer the solve returns its input: every
+    measurement is taken from the poses it starts at, and an edge whose
+    residual is the identity (a dead lane (0, 0) among them) has a NaN
+    Jacobian that zeroes every step (ROADMAP queue 3, kept for parity).
+    Here the captured correction's graph keeps its live edges and their
+    measurements, and every free keyframe starts from its corrected pose
+    moved by a small Sim3 drawn from ESSENTIAL_SEED, so the 20 iterations
+    (a 7K x 7K Cholesky each) must carry the keyframes back. Run twice on
+    the card (bit-identical) and once on the CPU: Sim3 poses within
+    ESSENTIAL_TOL, and moved by more than that."""
+    from orbslam_mapsave_tpu_torch.geometry import se3
+    from orbslam_mapsave_tpu_torch.optim import pose_graph
+    from orbslam_mapsave_tpu_torch.pipeline import loop_closing
+
+    prob = _live_edges(loop_closing.essential_graph_problem(corrected, kf, mkf))
+    K = prob.S_init.shape[0]
+    rng = np.random.default_rng(ESSENTIAL_SEED)
+    xi = np.concatenate([rng.normal(scale=0.01, size=(K, 6)),
+                         rng.normal(scale=0.002, size=(K, 1))], 1).astype(np.float32)
+    xi[mkf] = 0.0  # the fixed keyframe
+    prob = prob._replace(S_init=se3.sim3_exp(torch.from_numpy(xi).to(prob.S_init.device))
+                         @ prob.S_init)
+    t0 = time.perf_counter()
+    outs = [pose_graph.optimize_pose_graph(prob, n_iters=20)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    card_s = (time.perf_counter() - t0) / 2
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("essential-graph solve not bit-repeatable on the card")
+    t0 = time.perf_counter()
+    S_cpu, _ = pose_graph.optimize_pose_graph(
+        type(prob)(*[x.cpu() for x in prob]), n_iters=20)
+    cpu_s = time.perf_counter() - t0
+    live = prob.valid.cpu()
+    S_card, S0 = outs[0].cpu(), prob.S_init.cpu()
+    res = dict(edges=int(prob.edge_valid.shape[0]), keyframes=int(live.sum()),
+               card_vs_cpu_max_abs=float((S_card - S_cpu)[live].abs().max()),
+               moved_max_abs=float((S_card - S0)[live].abs().max()),
+               to_corrected_max_abs=float((S_card - corrected.kf_pose.cpu())[live].abs().max()),
+               card_s=card_s, cpu_s=cpu_s)
+    log("[loop replay] essential graph on its live edges: " + json.dumps(res))
+    if not res["card_vs_cpu_max_abs"] <= ESSENTIAL_TOL:
+        raise AssertionError(f"essential-graph solve: card and CPU differ by "
+                             f"{res['card_vs_cpu_max_abs']:.3g} > {ESSENTIAL_TOL}")
+    if not res["moved_max_abs"] > ESSENTIAL_TOL:
+        raise AssertionError("the essential-graph solve on the live edges moved no pose")
+    return res
+
+
+def phase_loop_replay(lc, cap: dict) -> dict:
+    """The replay twice on the card (bit-identical) and once on the CPU:
+    poses and points within 1e-3, equal kf_valid and loop edges; then the
+    essential graph's solve on its live edges (`_essential_solve`)."""
+    dev = torch.device("cuda", 0)
+    outs = [_loop_replay(lc, cap, dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    (ca, a, pa, xa), (cb, b, pb, xb) = outs
+    differ = [k for k, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    differ += [k for k, x, y in zip(ca._fields, ca, cb) if not torch.equal(x, y)]
+    if differ or not (torch.equal(pa, pb) and torch.equal(xa, xb)):
+        raise AssertionError(f"loop replay not bit-repeatable on the card: {differ}")
+    # what the essential graph changed on the card (ROADMAP queue 3: a dead
+    # edge lane makes the JAX solver, and so the port, return its input)
+    live_kf, live_pt = a.kf_valid, a.pt_valid
+    essential_change = dict(
+        pose_max_abs=float((a.kf_pose - ca.kf_pose)[live_kf].abs().max()),
+        point_max_abs=float((a.pt_pos - ca.pt_pos)[live_pt].abs().max()))
+    t0 = time.perf_counter()
+    _, c, pc, xc = _loop_replay(lc, cap, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    a = type(a)(*[x.cpu() for x in a])
+    pa, xa = pa.cpu(), xa.cpu()
+    both = a.pt_valid & c.pt_valid
+    diff = dict(
+        query_kf=cap["kf"], match_kf=cap["match_kf"], n_kf=int(a.kf_valid.sum()),
+        pose_max_abs=float((a.kf_pose - c.kf_pose).abs().max()),
+        point_max_abs=float((a.pt_pos - c.pt_pos)[both].abs().max()),
+        gba_pose_max_abs=float((pa - pc).abs().max()),
+        gba_point_max_abs=float((xa - xc)[both].abs().max()),
+        live_points_card=int(a.pt_valid.sum()), live_points_cpu=int(c.pt_valid.sum()),
+        kf_valid_equal=bool(torch.equal(a.kf_valid, c.kf_valid)),
+        loop_edges_equal=bool(torch.equal(a.kf_loop_edges, c.kf_loop_edges)), cpu_s=cpu_s,
+        essential_change_on_card=essential_change)
+    log("[loop replay] card x2 bit-identical; card vs CPU: " + json.dumps(diff))
+    if not (diff["kf_valid_equal"] and diff["loop_edges_equal"]):
+        raise AssertionError("kf_valid or the loop edges differ between card and CPU")
+    if max(diff[k] for k in ("pose_max_abs", "point_max_abs", "gba_pose_max_abs",
+                             "gba_point_max_abs")) > 1e-3:
+        raise AssertionError("card and CPU loop replays differ by more than 1e-3")
+    diff["essential_live_edges"] = _essential_solve(ca, cap["kf"], cap["match_kf"])
+    return diff
+
+
+def _profile_ranges(ranges: list) -> dict:
+    """Each (name, fn) of `ranges` once unprofiled-range, then once inside a
+    record_function range of its name, all in one torch.profiler session;
+    per range: device kernels, host reads (stream syncs), copies, device
+    and wall ms, busy share and the top device operations."""
     from torch.autograd import DeviceType
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mapper._map_step(*captured)
-        torch.cuda.synchronize()
-        with record_function("map_step"):
-            mapper._map_step(*captured)
+        for _, fn in ranges:
+            fn()
             torch.cuda.synchronize()
+        for name, fn in ranges:
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
     events = prof.events()
-    span = next(e for e in events if e.name == "map_step").time_range
+    out = {}
+    for name, _ in ranges:
+        span = next(e for e in events if e.name == name).time_range
 
-    def inside(e):
-        return e.time_range.start >= span.start and e.time_range.end <= span.end
+        def inside(e, span=span):
+            return e.time_range.start >= span.start and e.time_range.end <= span.end
 
-    dev = [e for e in events if e.device_type == DeviceType.CUDA and inside(e)
-           and e.name != "map_step"]  # the range itself shows on the device too
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    cpu = [e for e in events if e.device_type == DeviceType.CPU and inside(e)]
-    syncs = sum(e.name == "cudaStreamSynchronize" for e in cpu) - 1  # the final one
-    launch_api = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in cpu)
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    device_us = sum(sum(v) for v in by_name.values())
-    res = dict(kernels=len(kernels), launch_api_calls=launch_api, host_reads=syncs,
-               copies=len(dev) - len(kernels), device_ms=device_us / 1e3,
-               wall_ms=span.elapsed_us() / 1e3,
-               device_busy_share=device_us / span.elapsed_us())
-    log("[profile] one mapping step: " + json.dumps(res))
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
-    log("[profile] top device operations of the step (us total, calls, name):")
-    for name, ts in top:
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and inside(e)
+               and e.name != name]  # the range itself shows on the device too
+        kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+        cpu = [e for e in events if e.device_type == DeviceType.CPU and inside(e)]
+        by_name: dict[str, list[float]] = {}
+        for e in kernels:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        device_us = sum(sum(v) for v in by_name.values())
+        out[name] = dict(
+            kernels=len(kernels),
+            launch_api_calls=sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                                 for e in cpu),
+            # a read of a value syncs its stream; torch.cuda.synchronize() at
+            # the range's end is a device sync, not counted
+            host_reads=sum(e.name == "cudaStreamSynchronize" for e in cpu),
+            copies=len(dev) - len(kernels), device_ms=device_us / 1e3,
+            wall_ms=span.elapsed_us() / 1e3, device_busy_share=device_us / span.elapsed_us(),
+            top=sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12])
+    return out
+
+
+def _log_profile(label: str, res: dict):
+    log(f"[profile] {label}: " + json.dumps({k: v for k, v in res.items() if k != "top"}))
+    log(f"[profile] top device operations of {label} (us total, calls, name):")
+    for name, ts in res["top"]:
         log(f"[profile]   {sum(ts):10.1f} {len(ts):5d}  {name[:110]}")
+
+
+def phase_profile_map_step(mapper, captured) -> dict:
+    """One mapping step under torch.profiler: device kernels, host reads
+    and the top device operations."""
+    res = _profile_ranges([("map_step", lambda: mapper._map_step(*captured))])["map_step"]
+    _log_profile("one mapping step", res)
     return res
+
+
+def phase_profile_loop(lc, cap: dict, dev) -> dict:
+    """The loop stages of the first loop correction under torch.profiler:
+    the Sim3 chain of the closing pair (on the correction's input map),
+    the correction, the essential graph and one global-BA iteration."""
+    from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
+
+    st, kf, mkf, args = _correction_inputs(cap, dev)
+    corrected = lc._correct(st, kf, mkf, *args)
+    ess = lc._essential(corrected, kf, mkf)
+    job = gba_mod.GBAJob(ess, lc.cam, lc._t(dev)[1], n_iters=1)
+
+    def sim3():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(kf)
+        lc._sim3_chain(st, kf, mkf, generator=gen)
+
+    def gba_iteration():
+        gba_mod.global_ba.gba_iterate(lc.cam, job._tb, *job._carry)
+
+    res = _profile_ranges([("sim3 chain", sim3),
+                           ("correction", lambda: lc._correct(st, kf, mkf, *args)),
+                           ("essential graph", lambda: lc._essential(corrected, kf, mkf)),
+                           ("gba iteration", gba_iteration)])
+    for name, r in res.items():
+        _log_profile(f"loop stage '{name}'", r)
+    return {k: {kk: vv for kk, vv in v.items() if kk != "top"} for k, v in res.items()}
 
 
 def main() -> int:
@@ -660,10 +989,13 @@ def main() -> int:
         kres = phase_kernel(dev)
         seq = bench_sequence()
         phase_slice(dev, seq)
-        mres, mapper, captured = phase_mapping(dev, seq)
+        _, mapper, captured = phase_mapping(dev, seq)
         phase_map_step(mapper, captured)
+        lres, lc, lcap = phase_loop(dev, seq)
+        phase_loop_replay(lc, lcap)
         phase_profile(dev)
-        pres = phase_profile_map_step(mapper, captured)
+        phase_profile_map_step(mapper, captured)
+        phase_profile_loop(lc, lcap, dev)
     except Exception as e:  # every phase failure ends here, with no result
         import traceback
 
@@ -671,19 +1003,16 @@ def main() -> int:
         log(f"[chip_smoke] FAILED: {type(e).__name__}: {e}")
         return 1
     t1 = kres["timing"][1]
-    log("[chip_smoke] mapping slice: " + json.dumps(dict(
-        fps=mres["fps"], p50_ms=mres["p50_ms"], p99_ms=mres["p99_ms"],
-        map_step_p50_ms=mres["map_step_p50_ms"], map_step_p99_ms=mres["map_step_p99_ms"],
-        map_steps=mres["map_steps"], launches_per_map_step=pres["kernels"],
-        host_reads_per_map_step=pres["host_reads"], keyframes=mres["keyframes"],
-        kf_ate_m=mres["kf_ate_m"], lost=mres["lost"],
-        ba_lanes_dropped=mres["ba_lanes_dropped"])))
+    log("[chip_smoke] loop slice: " + json.dumps({k: lres[k] for k in (
+        "fps", "p50_ms", "p99_ms", "max_ms", "loops", "events", "keyframes", "points",
+        "kf_ate_m", "lost", "launches", "pose_optimizations", "gba_applied",
+        "ba_lanes_dropped", "n_words")}))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
         "source": "orbslam_mapsave_tpu_torch/csrc/pose_lm.cu",
         "replaces": "orbslam_mapsave_tpu/optim/pose_opt_pallas.py:139",
-        "launches": mres["launches"],
+        "launches": lres["launches"],
         "max_abs_err": kres["max_abs_err"],
         "ms": t1["ms"],
         "plain_ms": t1["plain_ms"],

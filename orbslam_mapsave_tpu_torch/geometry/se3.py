@@ -1,9 +1,10 @@
 """SO3 / SE3 Lie-group operations on torch tensors.
 
-Port of `orbslam_mapsave_tpu/geometry/se3.py` (the subset the RGB-D tracking
-path uses). Rotations are 3x3 matrices, transforms 4x4 homogeneous
-matrices; every function broadcasts over leading batch dimensions and is
-Taylor-guarded near theta=0.
+Port of `orbslam_mapsave_tpu/geometry/se3.py` (SO3, SE3 and Sim3; the
+quaternion helpers wait for a path that needs them). Rotations are 3x3
+matrices, transforms 4x4 homogeneous matrices, a Sim3 a 4x4 matrix with sR
+in the rotation block (g2o::Sim3 layout); every function broadcasts over
+leading batch dimensions and is Taylor-guarded near theta=0.
 """
 
 from __future__ import annotations
@@ -68,7 +69,9 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     skew = vee(R - R.transpose(-1, -2))
-    sin_t = 0.5 * torch.linalg.vector_norm(skew, dim=-1)
+    # sqrt of the sum, as the JAX version's norm (its forward-mode
+    # derivative at skew = 0 is NaN on both sides)
+    sin_t = 0.5 * torch.sqrt(torch.sum(skew * skew, dim=-1))
     theta = torch.atan2(sin_t, cos_t)
     generic_scale = torch.where(
         theta < 1e-5,
@@ -175,3 +178,103 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (...,4,4) to points (...,N,3) -> (...,N,3)."""
     R, t = mat_to_rt(T)
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def _det3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form determinant of (...,3,3)."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def sim3_orthonormalize(S: torch.Tensor, iters: int = 3) -> torch.Tensor:
+    """Project the sR block of a (...,4,4) Sim3 back onto scale x SO(3):
+    scale det(sR)^(1/3), rotation by the Newton polar iteration."""
+    M = S[..., :3, :3]
+    s = _cbrt(torch.clamp(_det3(M), min=1e-30))[..., None, None]
+    R = M / s
+    eye3 = _eye3(S)
+    for _ in range(iters):
+        R = R @ (1.5 * eye3 - 0.5 * R.transpose(-1, -2) @ R)
+    return rt_to_mat(s * R, S[..., :3, 3])
+
+
+def sim3_make(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Scale (...,), rotation (...,3,3), translation (...,3) -> (...,4,4)."""
+    return rt_to_mat(s[..., None, None] * R, t)
+
+
+def sim3_split(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(...,4,4) -> (s, R, t). Scale recovered as det(sR)^(1/3)."""
+    sR = S[..., :3, :3]
+    s = _cbrt(_det3(sR))
+    return s, sR / s[..., None, None], S[..., :3, 3]
+
+
+def sim3_inv(S: torch.Tensor) -> torch.Tensor:
+    s, R, t = sim3_split(S)
+    Rt = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sim3_make(sinv, Rt, -(sinv[..., None] * (Rt @ t[..., None])[..., 0]))
+
+
+def _sim3_wmat(w: torch.Tensor, sigma: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, W): the scale exp(sigma) and the matrix mapping nu to the
+    translation (Strasdat's scale-drift-aware SLAM derivation, the math of
+    g2o's `sim3.h`), with the sigma -> 0 and theta -> 0 limits."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
+    s = torch.exp(sigma)
+    W = hat(w)
+    W2 = W @ W
+    one = torch.ones_like(sigma)
+    small_theta = theta2 < _EPS
+    small_sigma = torch.abs(sigma) < 1e-6
+    safe_sigma = torch.where(small_sigma, one, sigma)
+    safe_theta = torch.where(small_theta, one, theta)
+    safe_theta2 = torch.where(small_theta, one, theta2)
+    C = torch.where(small_sigma, 1.0 + sigma * 0.5, (s - 1.0) / safe_sigma)
+    a = s * torch.sin(safe_theta)
+    b = s * torch.cos(safe_theta)
+    c = theta2 + sigma * sigma
+    safe_c = torch.where(c < 1e-12, one, c)
+    A_general = (a * sigma + (1.0 - b) * safe_theta) / (safe_theta * safe_c)
+    B_general = (C - ((b - 1.0) * sigma + a * safe_theta) / safe_c) / safe_theta2
+    A_sig0 = _cosc(theta2)
+    B_sig0 = torch.where(small_theta, one / 6.0,
+                         (safe_theta - torch.sin(safe_theta)) / (safe_theta2 * safe_theta))
+    A_th0 = torch.where(small_sigma, one * 0.5,
+                        ((sigma - 1.0) * s + 1.0) / (safe_sigma * safe_sigma))
+    B_th0 = torch.where(small_sigma, one / 6.0,
+                        (s * (0.5 * sigma * sigma - sigma + 1.0) - 1.0) / safe_sigma ** 3)
+    A = torch.where(small_sigma, A_sig0, torch.where(small_theta, A_th0, A_general))
+    B = torch.where(small_sigma, B_sig0, torch.where(small_theta, B_th0, B_general))
+    Wmat = C[..., None, None] * _eye3(w) + A[..., None, None] * W + B[..., None, None] * W2
+    return s, Wmat
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim3 tangent (...,7) [nu(3), omega(3), sigma] -> Sim3 (...,4,4)."""
+    nu, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s, Wmat = _sim3_wmat(w, sigma)
+    return sim3_make(s, so3_exp(w), (Wmat @ nu[..., None])[..., 0])
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Sim3 (...,4,4) -> tangent (...,7) [nu, omega, sigma]; inverse of
+    sim3_exp (solves W nu = t)."""
+    s, R, t = sim3_split(S)
+    w = so3_log(R)
+    sigma = torch.log(s)
+    _, Wmat = _sim3_wmat(w, sigma)
+    nu = torch.linalg.solve(Wmat, t[..., None])[..., 0]
+    return torch.cat([nu, w, sigma[..., None]], dim=-1)
+
+
+def sim3_transform_points(S: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply Sim3 (...,4,4) to points (...,N,3)."""
+    return pts @ S[..., :3, :3].transpose(-1, -2) + S[..., None, :3, 3]

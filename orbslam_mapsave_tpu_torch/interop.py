@@ -1,7 +1,9 @@
 """Carry state between the JAX package and this port as numpy arrays.
 
 The port has no learned weights; its state is the map (`MapState`), the
-frame (`FrameData`) and the tracker's `ControlState`. A JAX pytree fetched
+BoW database (`SparseBowStore`), the frame (`FrameData`) and the tracker's
+`ControlState`. (A vocabulary moves as a `.bin` file, which either
+package writes and the other loads.) A JAX pytree fetched
 as `{field: np.asarray(x)}` (or any NamedTuple of array-likes) turns into
 the port's structure on a given device, and back. The parity tests use
 this to hand both sides the same map and frame. numpy and torch only.
@@ -15,6 +17,7 @@ import torch
 from .pipeline.frame import FrameData
 from .pipeline.fused_step import ControlState
 from .slammap.mapstate import MapState
+from .vocab.database import SparseBowStore
 
 
 def _fields(src) -> dict:
@@ -25,9 +28,12 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(x))).to(device)
 
 
-def map_state_from_numpy(src, device="cpu") -> MapState:
+def map_state_from_numpy(src, device="cpu") -> MapState | SparseBowStore:
+    """A MapState — or a SparseBowStore, when src has exactly its fields
+    (word, weight)."""
     d = _fields(src)
-    return MapState(**{k: _tensor(d[k], device) for k in MapState._fields})
+    cls = SparseBowStore if set(d) == set(SparseBowStore._fields) else MapState
+    return cls(**{k: _tensor(d[k], device) for k in cls._fields})
 
 
 def frame_from_numpy(src, device="cpu") -> FrameData:
@@ -57,7 +63,7 @@ def _numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
-def map_state_to_numpy(state: MapState) -> dict:
+def map_state_to_numpy(state: MapState | SparseBowStore) -> dict:
     return {k: _numpy(v) for k, v in state._asdict().items()}
 
 

@@ -1,7 +1,7 @@
 """Projection- and descriptor-guided matching over whole frames.
 
-Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset RGB-D tracking
-and local mapping use): each search builds a dense (candidates x features) mask — window
+Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset RGB-D tracking,
+local mapping and loop closing use): each search builds a dense (candidates x features) mask — window
 radius, octave range, rotation bins — over the full Hamming matrix, and
 conflicts (several candidates claiming one feature) go to the smallest
 distance, then the lowest candidate row.
@@ -232,3 +232,101 @@ def search_for_triangulation(
     good = good & (owner == torch.arange(kp1_xy.shape[0], device=owner.device))
     return torch.where(good, idx, torch.full_like(idx, -1)), \
         torch.sum(good.to(torch.int32), -1)
+
+
+def _sim3_direction(cam, pt_world, pt_ok, pt_min, pt_max, pt_bits, S_target_w,
+                    kp_xy, kp_octave, kp_bits, kp_valid,
+                    bounds, scale_factors, th, n_levels, scale_factor):
+    """One direction of SearchBySim3: project source points through the Sim3
+    chain into the target camera; best descriptor within th*scale(predicted
+    level), octave in [lvl-1, lvl], TH_HIGH gate (`src/ORBmatcher.cc:
+    1151-1227`). Returns (match (P,), dist (P,))."""
+    bounds = _as_tensor(bounds, pt_world)
+    scale_factors = _as_tensor(scale_factors, pt_world)
+    p_c = se3.sim3_transform_points(S_target_w, pt_world)
+    z = p_c[..., 2]
+    uv, _ = projection.project(cam, p_c)
+    dist3d = torch.linalg.vector_norm(p_c, dim=-1)
+    ok = (
+        pt_ok & (z > 0)
+        & (uv[..., 0] >= bounds[0]) & (uv[..., 0] < bounds[1])
+        & (uv[..., 1] >= bounds[2]) & (uv[..., 1] < bounds[3])
+        & (dist3d >= pt_min) & (dist3d <= pt_max)
+    )
+    lvl = predict_scale(dist3d, pt_max, scale_factor, n_levels)
+    radius = th * scale_factors[lvl.long()]
+    in_win = _pair_d2(uv, kp_xy) <= (radius[:, None] ** 2)
+    oct_ok = (kp_octave[None, :] >= (lvl - 1)[:, None]) & (kp_octave[None, :] <= lvl[:, None])
+    mask = in_win & oct_ok & kp_valid[None, :] & ok[:, None]
+    idx, best, _ = hamming.masked_best2(hamming.hamming_matrix_bits(pt_bits, kp_bits),
+                                        extra_mask=mask)
+    good = ok & (best <= hamming.TH_HIGH)
+    return torch.where(good, idx, torch.full_like(idx, -1)), best
+
+
+def search_by_sim3(
+    cam: projection.Camera, T1w: torch.Tensor, T2w: torch.Tensor, S12: torch.Tensor,
+    kp1_xy, kp1_octave, kp1_bits, kp1_valid, p1_world, p1_ok, p1_min, p1_max, p1_bits,
+    kp2_xy, kp2_octave, kp2_bits, kp2_valid, p2_world, p2_ok, p2_min, p2_max, p2_bits,
+    already1: torch.Tensor, already2: torch.Tensor, bounds, scale_factors,
+    th: float = 7.5, n_levels: int = 4, scale_factor: float = 1.5,
+):
+    """`ORBmatcher::SearchBySim3` (`src/ORBmatcher.cc:1105-1329`): project
+    KF1's points into KF2 through S21 T1w and KF2's into KF1 through S12 T2w
+    and keep the pairs both directions agree on. S12 maps camera-2 to
+    camera-1 coordinates; features marked already1/already2 are skipped as
+    sources. Returns (matches12 (N1,) feature index in KF2 or -1, n)."""
+    N1 = kp1_xy.shape[0]
+    S21 = se3.sim3_inv(S12)
+    m1, _ = _sim3_direction(cam, p1_world, p1_ok & ~already1, p1_min, p1_max, p1_bits,
+                            S21 @ T1w, kp2_xy, kp2_octave, kp2_bits, kp2_valid,
+                            bounds, scale_factors, th, n_levels, scale_factor)
+    m2, _ = _sim3_direction(cam, p2_world, p2_ok & ~already2, p2_min, p2_max, p2_bits,
+                            S12 @ T2w, kp1_xy, kp1_octave, kp1_bits, kp1_valid,
+                            bounds, scale_factors, th, n_levels, scale_factor)
+    back = torch.where(m1 >= 0, m2[torch.clamp(m1, min=0).long()], torch.full_like(m1, -2))
+    agree = back == torch.arange(N1, dtype=back.dtype, device=back.device)
+    return torch.where(agree, m1, torch.full_like(m1, -1)), torch.sum(agree.to(torch.int32))
+
+
+def search_by_projection_scw(
+    cam: projection.Camera, Scw: torch.Tensor,
+    pt_world, pt_ok, pt_min, pt_max, pt_normal, pt_bits,
+    kp_xy, kp_octave, kp_bits, kp_valid, kp_matched,
+    bounds, scale_factors, th: float = 10.0, n_levels: int = 4,
+    scale_factor: float = 1.5,
+):
+    """`ORBmatcher::SearchByProjection(KF, Scw, ...)` (`src/ORBmatcher.cc:
+    293-406`): project candidate points through a Sim3 camera pose; gates
+    depth > 0, in image, the distance band measured from the Sim3 camera
+    centre, viewing angle < 60 deg, octave in [lvl-1, lvl], radius
+    th*scale(lvl), TH_LOW; kp_matched features are excluded. Returns
+    (matches (N,) candidate row or -1, n)."""
+    bounds = _as_tensor(bounds, pt_world)
+    scale_factors = _as_tensor(scale_factors, pt_world)
+    N = kp_xy.shape[0]
+    s, Rcw, t = se3.sim3_split(Scw)
+    tcw = t / s
+    p_c = pt_world @ Rcw.T + tcw
+    z = p_c[..., 2]
+    uv, _ = projection.project(cam, p_c)
+    po = pt_world - (-Rcw.T @ tcw)
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    view = torch.sum(po * pt_normal, -1)
+    ok = (
+        pt_ok & (z > 0)
+        & (uv[..., 0] >= bounds[0]) & (uv[..., 0] < bounds[1])
+        & (uv[..., 1] >= bounds[2]) & (uv[..., 1] < bounds[3])
+        & (dist >= pt_min) & (dist <= pt_max)
+        & (view >= 0.5 * dist)
+    )
+    lvl = predict_scale(dist, pt_max, scale_factor, n_levels)
+    radius = th * scale_factors[lvl.long()]
+    in_win = _pair_d2(uv, kp_xy) <= (radius[:, None] ** 2)
+    oct_ok = (kp_octave[None, :] >= (lvl - 1)[:, None]) & (kp_octave[None, :] <= lvl[:, None])
+    mask = in_win & oct_ok & kp_valid[None, :] & ok[:, None] & (~kp_matched)[None, :]
+    idx, best, _ = hamming.masked_best2(hamming.hamming_matrix_bits(pt_bits, kp_bits),
+                                        extra_mask=mask)
+    good = ok & (best <= hamming.TH_LOW)
+    matches = _resolve_conflicts(idx, best, good, N)
+    return matches, torch.sum((matches >= 0).to(torch.int32))

@@ -68,6 +68,20 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
+def jacobian_at_zero(f, n: int, batch: tuple, like: torch.Tensor):
+    """Forward-mode Jacobian at x = 0 of f: x (*batch, n) -> a tensor or a
+    tuple of tensors (*batch, ...), as `jax.jacfwd` gives it: the n unit
+    directions ride one jvp on a leading axis. Returns (*batch, ..., n) per
+    output. (`torch.func.jacfwd` over 0-dim slices promotes some tangents
+    to float64; a batched primal keeps the dtype.)"""
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    tangent = eye.reshape((n,) + (1,) * len(batch) + (n,)).expand((n,) + batch + (n,))
+    _, t = torch.func.jvp(f, (torch.zeros_like(tangent),), (tangent.contiguous(),))
+    if isinstance(t, tuple):
+        return tuple(torch.movedim(x, 0, -1) for x in t)
+    return torch.movedim(t, 0, -1)
+
+
 def solve_spd(H: torch.Tensor, g: torch.Tensor, lam,
               refine_steps: int = 2) -> torch.Tensor:
     """Solve (H + lam*I) dx = g in float32 with Jacobi pre-scaling and

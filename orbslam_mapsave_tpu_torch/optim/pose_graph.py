@@ -1,0 +1,136 @@
+"""Sim3 pose-graph (essential graph) optimization for loop correction.
+
+Port of `orbslam_mapsave_tpu/optim/pose_graph.py`, the dense solver
+(`Optimizer::OptimizeEssentialGraph`, `src/Optimizer.cc:781-1062`):
+vertices are per-keyframe Sim3 world->camera transforms, edges carry a
+measured relative Sim3, the residual sim3_log(S_meas (exp(xi_i) S_i
+(exp(xi_j) S_j)^-1)^-1) is linearized by forward-mode differentiation at
+xi = 0 for all edges at once, and the (7K,7K) normal system is assembled by
+incidence contractions and solved by Cholesky; 20 damped Gauss-Newton
+iterations. The matrix-free CG form (`solver="cg"`, reached past K = 384)
+waits for the scale slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from ..geometry import se3
+from . import lm as lm_mod
+
+
+class PoseGraphProblem(NamedTuple):
+    S_init: torch.Tensor  # (K,4,4) initial Sim3 (sR|t) world->camera
+    fixed: torch.Tensor  # (K,) bool
+    valid: torch.Tensor  # (K,) bool
+    edge_i: torch.Tensor  # (E,) i32
+    edge_j: torch.Tensor  # (E,) i32
+    edge_meas: torch.Tensor  # (E,4,4) measured S_ij = S_i S_j^-1
+    edge_valid: torch.Tensor  # (E,)
+    edge_weight: torch.Tensor  # (E,) information scale (1.0 default)
+
+
+def _edge_residual(S_i, S_j, S_meas, xi_i, xi_j):
+    rel = (se3.sim3_exp(xi_i) @ S_i) @ se3.sim3_inv(se3.sim3_exp(xi_j) @ S_j)
+    return se3.sim3_log(S_meas @ se3.sim3_inv(rel))
+
+
+def _edge_onehots(prob: PoseGraphProblem, K: int):
+    """(E,K) f32 incidence of each edge's endpoints: the Hessian and
+    gradient are assembled as contractions against these (exact for 0/1
+    operands, and order-free, unlike a float scatter-add)."""
+    ids = torch.arange(K, dtype=torch.int32, device=prob.edge_i.device)
+    return ((prob.edge_i[:, None] == ids).to(torch.float32),
+            (prob.edge_j[:, None] == ids).to(torch.float32))
+
+
+def _select_poses(S: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
+    return (oh @ S.reshape(S.shape[0], 16)).reshape(-1, 4, 4)
+
+
+def _linearize(S, prob: PoseGraphProblem, oh_i, oh_j):
+    """Residuals (E,7) and Jacobians (E,7,7) x2 at xi=0 for all edges."""
+    Si, Sj = _select_poses(S, oh_i), _select_poses(S, oh_j)
+    z = torch.zeros(Si.shape[0], 7, dtype=S.dtype, device=S.device)
+    r = _edge_residual(Si, Sj, prob.edge_meas, z, z)
+    E = (Si.shape[0],)
+    Ji = lm_mod.jacobian_at_zero(lambda x: _edge_residual(Si, Sj, prob.edge_meas, x, z),
+                                 7, E, S)
+    Jj = lm_mod.jacobian_at_zero(lambda x: _edge_residual(Si, Sj, prob.edge_meas, z, x),
+                                 7, E, S)
+    return r, Ji, Jj
+
+
+def _residuals_only(S, prob: PoseGraphProblem, oh_i, oh_j):
+    z7 = torch.zeros(7, dtype=S.dtype, device=S.device)
+    return _edge_residual(_select_poses(S, oh_i), _select_poses(S, oh_j),
+                          prob.edge_meas, z7, z7)
+
+
+def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str = "dense"):
+    """Damped Gauss-Newton over the pose graph. Returns (S_opt (K,4,4),
+    final chi2). A failed factorization gives a zero step, as the JAX
+    version's NaN -> 0 rule does."""
+    if solver != "dense":
+        raise NotImplementedError(
+            "the matrix-free CG pose graph (solver=\"cg\", K > 384) is not "
+            "ported to orbslam_mapsave_tpu_torch yet")
+    K = prob.S_init.shape[0]
+    dev = prob.S_init.device
+    free = prob.valid & ~prob.fixed
+    oh_i, oh_j = _edge_onehots(prob, K)
+    w = torch.where(prob.edge_valid, prob.edge_weight, torch.zeros_like(prob.edge_weight))
+    mask = torch.repeat_interleave(free, 7)
+    one = torch.ones((), dtype=prob.S_init.dtype, device=dev)
+
+    def chi2_of(S):
+        r = _residuals_only(S, prob, oh_i, oh_j)
+        return torch.sum(w * torch.sum(r * r, -1))
+
+    S = prob.S_init
+    lam = torch.tensor(1e-6, dtype=S.dtype, device=dev)
+    for _ in range(n_iters):
+        r, Ji, Jj = _linearize(S, prob, oh_i, oh_j)
+        cur = torch.sum(w * torch.sum(r * r, -1))
+        Hii = torch.einsum("eri,e,erj->eij", Ji, w, Ji)
+        Hjj = torch.einsum("eri,e,erj->eij", Jj, w, Jj)
+        Hij = torch.einsum("eri,e,erj->eij", Ji, w, Jj)
+        gi = -torch.einsum("eri,e,er->ei", Ji, w, r)
+        gj = -torch.einsum("eri,e,er->ei", Jj, w, r)
+        H = (torch.einsum("ea,eb,eij->abij", oh_i, oh_i, Hii)
+             + torch.einsum("ea,eb,eij->abij", oh_j, oh_j, Hjj)
+             + torch.einsum("ea,eb,eij->abij", oh_i, oh_j, Hij)
+             + torch.einsum("ea,eb,eji->abij", oh_i, oh_j, Hij).transpose(0, 1))
+        g = oh_i.T @ gi + oh_j.T @ gj
+        Hf = H.transpose(1, 2).reshape(K * 7, K * 7)
+        Hf = torch.where(mask[:, None] & mask[None, :], Hf, torch.zeros_like(Hf))
+        Hf = Hf + torch.diag(torch.where(mask, lam, one))
+        gf = torch.where(mask, g.reshape(-1), torch.zeros_like(g.reshape(-1)))
+        L, info = torch.linalg.cholesky_ex(Hf)
+        dx = torch.cholesky_solve(gf[:, None], L)[:, 0].reshape(K, 7)
+        dx = torch.where(torch.isfinite(dx) & (info == 0) & free[:, None], dx,
+                         torch.zeros_like(dx))
+        S_new = se3.sim3_exp(dx) @ S
+        accept = chi2_of(S_new) < cur
+        S = torch.where(accept, S_new, S)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-8, 1e8)
+    # chained f32 sim3_exp products drift off scale x SO(3)
+    S = se3.sim3_orthonormalize(S)
+    return S, chi2_of(S)
+
+
+def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
+    """Recover SE3 poses: Tiw = [R | t/s] (`src/Optimizer.cc:1012-1027`)."""
+    s, R, t = se3.sim3_split(S)
+    return se3.rt_to_mat(R, t / s[..., None])
+
+
+def correct_points(pt_pos: torch.Tensor, S_old_ref: torch.Tensor,
+                   S_new_ref: torch.Tensor) -> torch.Tensor:
+    """Move points with their reference KF's Sim3 correction
+    (`src/Optimizer.cc:1031-1060`): X' = S_new^-1 (S_old X), one pose per
+    point."""
+    p_cam = torch.einsum("pij,pj->pi", S_old_ref[..., :3, :3], pt_pos) + S_old_ref[..., :3, 3]
+    Sinv = se3.sim3_inv(S_new_ref)
+    return torch.einsum("pij,pj->pi", Sinv[..., :3, :3], p_cam) + Sinv[..., :3, 3]

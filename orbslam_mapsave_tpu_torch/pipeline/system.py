@@ -1,11 +1,15 @@
 """System facade — the public API mirroring the reference's `System` class.
 
-Port of `orbslam_mapsave_tpu/pipeline/system.py` for RGB-D tracking and
-local mapping: `SLAMSystem(cfg, Sensor.RGBD)` (no vocabulary) tracks RGB-D
-frames and runs a local-mapping pass (triangulation, fuse, local BA,
-keyframe culling) at every keyframe; `enable_mapping=False` tracks only.
-Loop closing, relocalization with a vocabulary, map reuse, monocular and
-stereo input are later slices and raise NotImplementedError here.
+Port of `orbslam_mapsave_tpu/pipeline/system.py` for RGB-D input:
+`SLAMSystem(cfg, Sensor.RGBD)` tracks RGB-D frames and runs a local-mapping
+pass (triangulation, fuse, local BA, keyframe culling) at every keyframe
+(`enable_mapping=False` tracks only); given a vocabulary it also closes
+loops (BoW detection, Sim3, loop fusion, essential graph, incremental
+global BA) unless `enable_loop_closing=False`. Relocalization against the
+BoW database, map reuse, monocular and stereo input are later slices and
+raise NotImplementedError: with a vocabulary, the frame on which tracking
+is lost raises (without one, the tracker retries against its reference
+keyframe every frame).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..io import trajectory as traj_io
 from ..ops import orb
 from ..slammap import mapstate as ms
 from . import frame as frame_mod
-from . import local_mapping, tracking
+from . import local_mapping, loop_closing, tracking
 
 
 class Sensor(enum.Enum):
@@ -34,8 +38,8 @@ class Sensor(enum.Enum):
 def _not_yet(what: str):
     return NotImplementedError(
         f"{what} is not ported to orbslam_mapsave_tpu_torch yet: this "
-        "package runs RGB-D tracking and local mapping (Sensor.RGBD, no "
-        "vocabulary); use orbslam_mapsave_tpu for the rest")
+        "package runs RGB-D tracking, local mapping and loop closing "
+        "(Sensor.RGBD); use orbslam_mapsave_tpu for the rest")
 
 
 class SLAMSystem:
@@ -50,11 +54,8 @@ class SLAMSystem:
                  enable_mapping: bool = True, device=None):
         if sensor != Sensor.RGBD:
             raise _not_yet(f"{sensor.name} input")
-        if vocabulary is not None:
-            raise _not_yet("a vocabulary (loop closing / BoW relocalization)")
         if reuse_map_path:
             raise _not_yet("map reuse (reuse_map_path)")
-        del enable_loop_closing  # no loop closing without a vocabulary
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -92,6 +93,13 @@ class SLAMSystem:
             self.cam, self.builder, self.map, tcfg,
             n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor,
             mapper=self.mapper)
+        self.tracker.bow_relocalization = vocabulary is not None
+        self.loop_closer = None
+        if enable_loop_closing and vocabulary is not None:
+            self.loop_closer = loop_closing.LoopCloser(
+                self.cam, self.builder.inv_level_sigma2, vocabulary,
+                scale_factors=self.builder.scale_factors,
+                n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
 
     # ------ frame entry point (System.cc:261-490) ------
     def track_rgbd(self, image, depth, timestamp: float):
@@ -102,8 +110,9 @@ class SLAMSystem:
 
     def _run_backends(self):
         """After each frame: reset when lost right after initialization,
-        and recycle slots near capacity. (The JAX version also drains its
-        keyframe queue into loop closing, a later slice.)"""
+        pump the global-BA job, drain the new keyframes into loop closing
+        (the LoopClosing thread body, `src/LoopClosing.cc:58-89`), and
+        recycle slots near capacity."""
         self.map = self.tracker.map
         if self.tracker.needs_reset:
             # lost with <= 5 keyframes right after init: start over
@@ -111,6 +120,13 @@ class SLAMSystem:
             self.tracker.needs_reset = False
             self.reset()
             return
+        lc = self.loop_closer
+        if lc is not None and lc.pending_gba is not None:
+            self.map = lc.poll_gba(self.map)
+        while self.tracker.new_kf_slots:
+            kf = self.tracker.new_kf_slots.pop(0)
+            if lc is not None:
+                self.map = lc.process(self.map, kf)
         self._maybe_compact()
         self.tracker.map = self.map
 
@@ -123,6 +139,7 @@ class SLAMSystem:
         cfg = self.cfg
         did = False
         if trk.n_pt_watermark > 0.9 * cfg.max_points:
+            self.flush_gba()
             self.map, new_pt = ms.compact_points(self.map)
             lm_ = trk.ctrl.last_matched
             trk.ctrl = trk.ctrl._replace(
@@ -133,10 +150,13 @@ class SLAMSystem:
                 self.mapper.recent_start = int(self.map.n_pt)
             did = True
         if trk.n_kf_watermark > 0.9 * cfg.max_keyframes:
+            self.flush_gba()
             self.map, new_kf = ms.compact_keyframes(self.map)
             trk.ctrl = trk.ctrl._replace(
                 ref_kf=max(int(new_kf[max(trk.ctrl.ref_kf, 0)]), 0))
             trk.ref_kf = max(int(new_kf[trk.ref_kf]), 0) if trk.ref_kf >= 0 else 0
+            if self.loop_closer is not None:
+                self.loop_closer.remap_keyframes(new_kf.cpu().numpy())
             did = True
         if did:
             trk.n_pt_watermark = 0
@@ -158,9 +178,27 @@ class SLAMSystem:
         trk.n_kf_watermark = 0
         trk.ba_lanes_dropped = 0
         trk.ba_escalations = 0
+        trk.new_kf_slots.clear()
         if self.mapper is not None:
             self.mapper.recent_start = None
             self.mapper.ba_lane_log.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
+
+    def flush_gba(self):
+        """Drain pending loop-closing work into the map: the detect -> Sim3
+        chain (each stage is read one keyframe late, so two polls), then
+        the whole pending global-BA job (the reference blocks on
+        `isFinishedGBA` at shutdown, `src/System.cc:535-550`)."""
+        lc = self.loop_closer
+        if lc is not None:
+            self.map = lc.poll_detect(self.map)
+            self.map = lc.poll_detect(self.map)
+            self.map = lc.poll_gba(self.map, force=True)
+            self.tracker.map = self.map
+
+    def shutdown(self):
+        self.flush_gba()
 
     # ------ trajectory export (System.cc:675-836) ------
     def save_camera_trajectory(self, path: str | Path):
@@ -178,6 +216,7 @@ class SLAMSystem:
         return ts, self.map.kf_pose.cpu().numpy()[valid]
 
     def save_keyframe_trajectory(self, path: str | Path):
+        self.flush_gba()
         ts, poses = self.keyframe_trajectory()
         traj_io.save_keyframe_trajectory(path, ts, poses)
 

@@ -296,7 +296,9 @@ class TrackerConfig:
 class Tracker:
     """Host driver over the per-frame step (the Tracking thread's member
     state, `include/Tracking.h:85-228`). Each frame: build, step, read the
-    outcome; while LOST, retry reference-KF tracking every frame."""
+    outcome; while LOST, retry reference-KF tracking every frame (without
+    a vocabulary; with one, losing track raises until relocalization is
+    ported)."""
 
     def __init__(self, cam: projection.Camera, builder: frame_mod.FrameBuilder,
                  state: ms.MapState, cfg: TrackerConfig,
@@ -313,7 +315,9 @@ class Tracker:
         self.ctrl: fused_step.ControlState | None = None
         self.state = NO_IMAGES_YET
         self.ref_kf = 0  # reference KF of the LOST-mode retry (as in JAX)
-        self.relocalizer = None  # relocalization is a later slice
+        # set by SLAMSystem when it has a vocabulary: the JAX tracker then
+        # relocalizes against the BoW database, which is not ported yet
+        self.bow_relocalization = False
         # device timestamps are f32 OFFSETS from this f64 epoch (the first
         # frame's stamp); exports add it back
         self.ts_epoch: float | None = None
@@ -325,6 +329,7 @@ class Tracker:
         # escalation, and the number of escalated mapping steps
         self.ba_lanes_dropped = 0
         self.ba_escalations = 0
+        self.new_kf_slots: list[int] = []  # loop-closing queue
 
     @property
     def trajectory(self) -> list[tuple[float, np.ndarray, bool]]:
@@ -347,6 +352,8 @@ class Tracker:
         self.n_kf_watermark = out.n_kf_alloc
         self.ba_lanes_dropped += out.ba_lanes_dropped
         self.ba_escalations += int(out.ba_escalated)
+        if out.kf_created:
+            self.new_kf_slots.append(int(out.kf_slot))
         self.state = {1: NOT_INITIALIZED, 2: OK, 3: LOST}.get(out.mode, out.mode)
         if self.state == LOST and out.n_kf <= 5:
             self.needs_reset = True
@@ -382,5 +389,10 @@ class Tracker:
         self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
         self._record(out, float(timestamp))
         if self.state == LOST:
+            if self.bow_relocalization and not self.needs_reset:
+                raise NotImplementedError(
+                    "tracking is lost and a vocabulary is set: BoW relocalization "
+                    "(pipeline/relocalization.py) is not ported to "
+                    "orbslam_mapsave_tpu_torch yet (the relocalization slice)")
             self._relocalize(fr)
         return self._trajectory[-1][1]

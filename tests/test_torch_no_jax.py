@@ -1,7 +1,8 @@
 """The port never reaches for jax or the JAX package: in a fresh process
 where both are unimportable, import every module of
-orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU; and no
-source line of the port or of chip_smoke.py imports either."""
+orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU, without a
+vocabulary and with a small trained one and loop closing on; and no source
+line of the port or of chip_smoke.py imports either."""
 
 import subprocess
 import sys
@@ -33,6 +34,15 @@ cfg.max_keypoints, cfg.max_keyframes, cfg.max_points = 768, 8, 4096
 slam = system.SLAMSystem(cfg, system.Sensor.RGBD, enable_mapping=False, device="cpu")
 pose = slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
 assert pose.shape == (4, 4) and slam.n_keyframes == 1 and slam.n_points > 300
+from orbslam_mapsave_tpu_torch.vocab import vocabulary
+fr = slam.builder.build(gray.astype(np.uint8), 0.0, depth)
+voc = vocabulary.train(fr.desc[fr.valid].numpy(), k=4, L=2, seed=1)
+slam = system.SLAMSystem(cfg, system.Sensor.RGBD, vocabulary=voc, enable_loop_closing=True,
+                         device="cpu")
+pose = slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
+store = slam.loop_closer.bow_store
+assert pose.shape == (4, 4) and slam.n_keyframes == 1 and float(store.weight[0].sum()) > 0.99
+slam.shutdown()
 assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names), slam.n_points)

@@ -38,7 +38,8 @@ def seq(tmp_path_factory):
     return {"root": out, "poses": poses}
 
 
-def _system(cfg_mod, sys_mod, max_points=8192, enable_mapping=False, **kw):
+def _system(cfg_mod, sys_mod, max_points=8192, enable_mapping=False, vocabulary=None,
+            **kw):
     cfg = cfg_mod.SystemConfig()
     cfg.camera = cfg_mod.CameraConfig(
         fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H,
@@ -47,7 +48,7 @@ def _system(cfg_mod, sys_mod, max_points=8192, enable_mapping=False, **kw):
     cfg.max_keypoints = 768
     cfg.max_keyframes = 32
     cfg.max_points = max_points
-    return sys_mod.SLAMSystem(cfg, sys_mod.Sensor.RGBD, vocabulary=None,
+    return sys_mod.SLAMSystem(cfg, sys_mod.Sensor.RGBD, vocabulary=vocabulary,
                               enable_loop_closing=False, enable_mapping=enable_mapping,
                               **kw)
 
@@ -178,6 +179,40 @@ def test_lost_right_after_init_resets(seq):
     assert ts.tracking_state == tracking.OK and ts.n_keyframes == 1
 
 
+@pytest.mark.parametrize("with_vocabulary", [False, True])
+def test_lost_later_with_a_vocabulary_raises(seq, monkeypatch, with_vocabulary):
+    """Lost past the early-reset ladder (its flag held off here): without a
+    vocabulary the tracker retries its reference keyframe, as the JAX
+    tracker's fallback does; with one, the JAX tracker relocalizes against
+    the BoW database, which is not ported, so the port raises."""
+    from orbslam_mapsave_tpu_torch.pipeline import tracking
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    frames = list(dataset.TUMDataset(seq["root"], depth_factor=5000.0))
+    voc = None
+    if with_vocabulary:
+        fr = _system(tcfg, tsys, device="cpu").builder.build(frames[0][1], 0.0, frames[0][2])
+        voc = vocabulary.train(fr.desc[fr.valid].numpy(), k=4, L=2, seed=1)
+    ts = _system(tcfg, tsys, device="cpu", vocabulary=voc)
+    trk = ts.tracker
+    record = trk._record
+
+    def record_past_the_ladder(out, t):
+        record(out, t)
+        trk.needs_reset = False
+
+    monkeypatch.setattr(trk, "_record", record_past_the_ladder)
+    for t, gray, depth in frames[:3]:
+        ts.track_rgbd(gray, depth, t)
+    t, gray, depth = frames[3]
+    if with_vocabulary:
+        with pytest.raises(NotImplementedError, match="relocalization"):
+            ts.track_rgbd(np.zeros_like(gray), np.zeros_like(depth), t)
+    else:
+        ts.track_rgbd(np.zeros_like(gray), np.zeros_like(depth), t)
+        assert ts.tracking_state == tracking.LOST and ts.tracker.trajectory[-1][2]
+
+
 def test_cpu_run_used_plain_pose_opt(runs):
     assert pose_opt_cuda.launches == 0
 
@@ -193,13 +228,17 @@ def test_device_defaults_to_the_card(monkeypatch):
     assert ts.map.pt_pos.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(enable_mapping=True, vocabulary=object()),
-                                dict(enable_mapping=False, vocabulary=object()),
+@pytest.mark.parametrize("kw", [dict(sensor="STEREO"),
+                                dict(enable_mapping=True, reuse_map_path="m.bin"),
                                 dict(enable_mapping=False, reuse_map_path="m.bin")])
 def test_unported_options_raise(kw):
+    """Stereo input and map reuse wait for their slices (a vocabulary and
+    loop closing are ported: tests/test_torch_no_jax.py runs them)."""
     cfg = tcfg.SystemConfig()
+    kw = dict(kw)
+    sensor = tsys.Sensor[kw.pop("sensor", "RGBD")]
     with pytest.raises(NotImplementedError):
-        tsys.SLAMSystem(cfg, tsys.Sensor.RGBD, device="cpu", **kw)
+        tsys.SLAMSystem(cfg, sensor, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         tsys.SLAMSystem(cfg, tsys.Sensor.MONOCULAR, enable_mapping=False,
                         device="cpu")
