@@ -56,16 +56,49 @@ no result):
               start poses (the loop closer's own solve returns its input):
               twice on the card (bit-identical), once on the CPU, Sim3
               poses within 1e-4 and moved by more than that.
-9. profile  — a torch.profiler trace of 10 pose-LM calls shows 10 device
+9. kidnap   — lost and found in the headline configuration: SLAMSystem with
+              phase 7's vocabulary over frames 0-149, 3 blank frames (zero
+              image and depth), then the images of frames 100-239 with
+              timestamps that continue the clock: LOST on the blanks,
+              relocalization (BoW candidates, batched EPnP RANSAC, one
+              pose-LM launch of B = candidates per LM step) on the resumed
+              frames, printed beside the JAX CPU run's frame; keyframes
+              within 20% and keyframe ATE within 1 cm of the JAX CPU run.
+              Each attempt and its stages are timed (synced) and its
+              candidates and inliers printed; pose-LM launches at B > 1 and
+              B = 1 are counted.
+10. reuse   — the map of phase 7's timed pass, saved there with its BoW
+              rows (`save_map`), loaded by SLAMSystem(cfg, RGBD,
+              vocabulary, reuse_map_path=...): it starts LOST in
+              localization-only mode, uses the persisted rows without a
+              rebuild, and runs the 240 frames: the first relocalized frame
+              as the JAX CPU run's, localized frames within 10% of it, their
+              ATE within 1 cm of it, keyframes and points exactly those of
+              the loaded map; frames/s, p50/p99 ms, save and load ms, file
+              MB. A second load from a file without BoW rows rebuilds rows
+              equal to the persisted ones. One relocalization batch's
+              pose-LM launch (the run's first at B > 1), and the same batch
+              padded to B = 5 as the JAX relocalizer pads it, against the
+              plain version per candidate (pose 1e-4, inlier flips only at a
+              gate), timed as one synchronous call and as CUDA-graph device
+              time.
+    cli     — the other entry points on the card: `SLAMSystem.load_map` on
+              a system that has mapped 30 frames (continues LOST in
+              localization-only mode, relocalizes, leaves the loaded map as
+              it is), and `apps/run_slam.py --save-map`, then `--reuse-map`,
+              on a TUM copy of 60 bench frames (needs Pillow to read PNGs).
+11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
-              phase-6 state and the loop stages of the phase-8 correction
-              (Sim3 chain, correction, essential graph, one GBA iteration):
-              device kernels, host reads (stream syncs) and top device
-              operations (last: a profile slows later launches).
+              phase-6 state, the loop stages of the phase-8 correction
+              (Sim3 chain, correction, essential graph, one GBA iteration)
+              and one relocalization attempt of phase 10: device kernels,
+              host reads (stream syncs) and top device operations (last: a
+              profile slows later launches).
 
 The last lines are the loop slice's summary, a JSON record of the kernels
-(`launches` from the loop slice), the card's `nvidia-smi` name/power line,
-and {"ok": true, "device": {...}}.
+(`launches` from the loop slice, `launches_batched` the B > 1 launches of
+the kidnap and reuse runs), the card's `nvidia-smi` name/power line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -76,6 +109,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -101,6 +135,22 @@ JAX_CPU_LOOP_N_WORDS = 9640
 JAX_CPU_LOOP_KEYFRAMES = 23
 JAX_CPU_LOOP_KF_ATE_M = 0.008675051457092587
 JAX_CPU_LOOP_EVENTS = [(217, 37)]  # (query, match) keyframes' frame ids
+# the kidnap sequence (`--kidnap`, outcomes read every frame): 22
+# keyframes, 27,091 points, kf ATE 0.023986 m, no loop; frames 150-218
+# tracked as lost: relocalized on frame 153 (the first resumed frame) and on
+# every frame after it up to 218, where the JAX tracker's reference keyframe,
+# left stale by a relocalization, is seen again (ROADMAP queue 3)
+JAX_CPU_KIDNAP_KEYFRAMES = 22
+JAX_CPU_KIDNAP_KF_ATE_M = 0.023985717061088794
+JAX_CPU_KIDNAP_RELOC_FRAME = 153
+# map reuse (`--reuse`): the headline run's map (23 keyframes, 26,168
+# points, 4,227,757 bytes) reloaded; relocalized on frame 0, 72 frames
+# localized (1-72), lost from frame 73 on (the same stale reference
+# keyframe), ATE of the localized frames 0.023735 m
+JAX_CPU_REUSE_FIRST_RELOC = 0
+JAX_CPU_REUSE_LOCALIZED = 72
+JAX_CPU_REUSE_ATE_M = 0.023734994481243745
+KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
 WARMUP_FRAMES = 24  # untimed frames before each slice; reach a third keyframe
@@ -228,13 +278,14 @@ def _check_inliers(cam, pose_k, inl_k, n_k, pose_r, inl_r, obs1) -> int:
     return len(flips)
 
 
-def _round_inliers(pose0, obs1) -> list[torch.Tensor]:
+def _round_inliers(pose0, obs1, cam=None) -> list[torch.Tensor]:
     """Each round's inlier set in a run of the plain version on one
     problem, which the kernel matches: the valid edges in round 0, then the
     reclassification that opens each later round."""
     from orbslam_mapsave_tpu_torch.optim import pose_opt
     from orbslam_mapsave_tpu_torch.optim.pose_problem import CAM
 
+    cam = cam or CAM
     sets = [obs1.valid]
     reclassify = pose_opt._reclassify
 
@@ -244,41 +295,43 @@ def _round_inliers(pose0, obs1) -> list[torch.Tensor]:
 
     pose_opt._reclassify = recorded
     try:
-        pose_opt.pose_optimization_ref(CAM, pose0, obs1)
+        pose_opt.pose_optimization_ref(cam, pose0, obs1)
     finally:
         pose_opt._reclassify = reclassify
     return sets[:-1]  # the last reclassification is the output pass
 
 
-def _flops(pose0, obs1, n_iters=10) -> int:
+def _flops(pose0, obs1, n_iters=10, cam=None) -> int:
     """The FLOPs one problem's call needs on its data: every pass reads the
     residual of the edges it needs (all valid edges when it reclassifies,
     else the round's inliers) and adds the inliers' system terms."""
     from orbslam_mapsave_tpu_torch.optim import pose_opt
     from orbslam_mapsave_tpu_torch.optim.pose_problem import CAM
 
+    cam = cam or CAM
     stereo = obs1.ur >= 0
 
     def count(mask, per):
         return per[0] * int((mask & ~stereo).sum()) + per[1] * int((mask & stereo).sum())
 
-    behind = pose_opt._residuals(CAM, pose0, obs1)[5]  # round 0 takes them as inliers
+    behind = pose_opt._residuals(cam, pose0, obs1)[5]  # round 0 takes them as inliers
     flops = count(obs1.valid, FLOP_RESIDUAL)  # the output pass
-    for inl in _round_inliers(pose0, obs1):
+    for inl in _round_inliers(pose0, obs1, cam):
         system = count(inl & ~behind, FLOP_SYSTEM) + FLOP_COST * int(inl.sum())
         flops += count(obs1.valid, FLOP_RESIDUAL) + system  # the round's first pass
         flops += n_iters * (count(inl, FLOP_RESIDUAL) + system)
     return flops
 
 
-def _bound_ms(pose0, obs) -> tuple[float, str, float, int]:
+def _bound_ms(pose0, obs, cam=None) -> tuple[float, str, float, int]:
     """(least time on the whole card, what bounds it, least time on one SM,
     FLOPs) for one call on these inputs; a problem runs on one SM, so the
     one-SM time is the largest problem's."""
     from orbslam_mapsave_tpu_torch.optim import pose_opt
 
     B, M = obs.valid.shape
-    flops = [_flops(pose0[b], pose_opt.PoseObs(*[x[b] for x in obs])) for b in range(B)]
+    flops = [_flops(pose0[b], pose_opt.PoseObs(*[x[b] for x in obs]), cam=cam)
+             for b in range(B)]
     t_ops = sum(flops) / PEAK_F32
     t_bytes = (B * M * BYTES_PER_EDGE + B * BYTES_PER_PROBLEM) / PEAK_BYTES
     sm_ms = 1e3 * max(flops) / (PEAK_F32 / N_SM)
@@ -414,7 +467,7 @@ def bench_sequence():
     return poses, frames
 
 
-def _bench_system(dev, enable_mapping: bool, vocabulary=None):
+def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=None):
     from orbslam_mapsave_tpu_torch import config as cfg_mod
     from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
@@ -427,7 +480,8 @@ def _bench_system(dev, enable_mapping: bool, vocabulary=None):
     cfg.max_keyframes = 64
     cfg.max_points = 32768
     return system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=vocabulary,
-                                 enable_mapping=enable_mapping, device=dev)
+                                 enable_mapping=enable_mapping, device=dev,
+                                 reuse_map_path=reuse_map_path)
 
 
 def _run_slice(slam, seq, name: str, on_start=None, warmup: int = WARMUP_FRAMES) -> dict:
@@ -734,15 +788,19 @@ def _loop_stage_pass(slam, seq) -> tuple[dict, dict]:
     return _stage_summary(timed), captured[0]
 
 
-def phase_loop(dev, seq) -> tuple[dict, object, dict]:
+def phase_loop(dev, seq, map_path: Path) -> tuple[dict, object, dict]:
     """bench.py's headline workload: SLAMSystem with a vocabulary and loop
     closing on. One full untimed pass, flush_gba(), reset() (bench.py:141-146),
-    then the timed pass, as a user runs it. Then one more pass, untimed,
-    times every loop stage and keeps the first loop correction's inputs."""
+    then the timed pass, as a user runs it, whose map is saved to map_path
+    (for phase 10). Then one more pass, untimed, times every loop stage and
+    keeps the first loop correction's inputs."""
     voc = train_vocabulary(_bench_system(dev, True), seq)
     slam = _bench_system(dev, True, vocabulary=voc)
     lc = slam.loop_closer
     res = _run_slice(slam, seq, "loop", warmup=N_FRAMES)
+    t0 = time.perf_counter()
+    slam.save_map(map_path)
+    res["save_ms"] = 1e3 * (time.perf_counter() - t0)
     events = _loop_events(slam)
     res.update(loops=len(lc.events), events=events,
                inliers=[e.n_inliers for e in lc.events], gba_applied=lc.gba_applied,
@@ -892,6 +950,368 @@ def phase_loop_replay(lc, cap: dict) -> dict:
     return diff
 
 
+def _kidnap_sequence(seq):
+    """(frames, ground-truth index per frame or None for a blank): frames
+    0..KIDNAP_AT-1, KIDNAP_BLANKS blank frames, then KIDNAP_RESUME.."""
+    _, frames = seq
+    order = (list(range(KIDNAP_AT)) + [None] * KIDNAP_BLANKS
+             + list(range(KIDNAP_RESUME, N_FRAMES)))
+    blank = (np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1]))
+    return [frames[i] if i is not None else blank for i in order], order
+
+
+def _attempts_summary(attempts: list) -> dict:
+    ms_ = [a["ms"] for a in attempts]
+    return dict(attempts=len(attempts), accepted=sum(a["accepted"] for a in attempts),
+                ms_p50=float(np.percentile(ms_, 50)) if ms_ else None,
+                ms_max=float(max(ms_)) if ms_ else None,
+                lm_steps=[a["lm_steps"] for a in attempts])
+
+
+def _recording_relocalizer(rel, attempts: list, stage_ms: list) -> list:
+    """Patches (for `_patched`) that time each relocalization attempt and its
+    stages (device sync before and after each) and keep each attempt's
+    candidates and inliers."""
+    from orbslam_mapsave_tpu_torch.pipeline import relocalization
+
+    batch, relocalize = rel.batch, rel.relocalize
+
+    def recorded_batch(state, frame, cands, *a, **k):
+        r = batch(state, frame, cands, *a, **k)
+        attempts.append(dict(cands=list(cands), matches=r.n_matches.tolist(),
+                             ransac=r.ransac_inliers.tolist(), n_opt=r.n_opt.tolist(),
+                             lm_steps=r.lm_steps))
+        return r
+
+    def timed_attempt(*a):
+        n = len(attempts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = relocalize(*a)
+        torch.cuda.synchronize()
+        ms_ = 1e3 * (time.perf_counter() - t0)
+        if len(attempts) > n:  # a batch ran (there were candidates)
+            attempts[-1].update(ms=ms_, accepted=out is not None)
+        stage_ms.append(("attempt", ms_))
+        return out
+
+    # descriptor matching is what an attempt's time leaves after these
+    return [(rel, "batch", recorded_batch), (rel, "relocalize", timed_attempt),
+            (rel, "candidates", _synced(rel.candidates, "candidates", stage_ms)),
+            (relocalization.epnp, "ransac_pnp",
+             _synced(relocalization.epnp.ransac_pnp, "ransac", stage_ms)),
+            (rel, "_opt_pose", _synced(rel._opt_pose, "pose LM (batched)", stage_ms)),
+            (rel, "_re_search", _synced(rel._re_search, "re-search", stage_ms))]
+
+
+def phase_kidnap(dev, seq, voc) -> dict:
+    """Lost and found in the headline configuration: frames 0-149, 3 blank
+    frames, then frames 100-239 with the clock running on, through
+    `SLAMSystem.track_rgbd` with the loop phase's vocabulary. Every
+    relocalization attempt is timed (synced) with its stages."""
+    from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
+    from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.pipeline import tracking
+
+    poses, _ = seq
+    frames, order = _kidnap_sequence(seq)
+    stamps = 1000.0 + np.arange(len(order)) / 30.0
+    slam = _bench_system(dev, True, vocabulary=voc)
+    attempts, stage_ms, states = [], [], []
+    with _patched(_recording_relocalizer(slam.tracker.relocalizer, attempts, stage_ms)):
+        pose_opt_cuda.reset_launches()
+        t0 = time.perf_counter()
+        for j, fr in enumerate(frames):
+            slam.track_rgbd(*fr, stamps[j])
+            states.append(slam.tracking_state)
+        slam.flush_gba()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, batched = pose_opt_cuda.launches, pose_opt_cuda.launches_batched
+    shown = [j for j, i in enumerate(order) if i is not None]
+    ts, est = slam.keyframe_trajectory()
+    kf_ate = traj_io.ate_rmse(stamps[shown], poses[[order[j] for j in shown]], ts,
+                              np.linalg.inv(est))
+    lost = [j for j, (_, _, l) in enumerate(slam.tracker.trajectory) if l]
+    after = KIDNAP_AT + KIDNAP_BLANKS
+    reloc = next((j for j in range(after, len(order)) if states[j] == tracking.OK), None)
+    res = dict(frames=len(order), seconds=wall, lost_frames=len(lost),
+               lost_first=lost[:1], lost_last=lost[-1:], reloc_frame=reloc,
+               jax_cpu_reloc_frame=JAX_CPU_KIDNAP_RELOC_FRAME, keyframes=slam.n_keyframes,
+               points=slam.n_points, kf_ate_m=kf_ate, loops=len(slam.loop_closer.events),
+               launches=launches, launches_batched=batched, launches_b1=launches - batched,
+               **_attempts_summary(attempts), stages_ms=_stage_summary(stage_ms))
+    log("[kidnap] " + json.dumps({k: v for k, v in res.items() if k != "stages_ms"}))
+    log("[kidnap] relocalization stages, ms per call (host clock, synced): "
+        + json.dumps({k: [float(np.median(v)), len(v)] for k, v in res["stages_ms"].items()}))
+    log("[kidnap] attempts (frame-ordered; candidates, each candidate's final "
+        "inliers, ms): " + json.dumps([(len(a["cands"]), a["n_opt"], round(a["ms"], 1))
+                                       for a in attempts]))
+    for a in attempts[:3]:
+        log("[kidnap] attempt: " + json.dumps(a))
+    if reloc != JAX_CPU_KIDNAP_RELOC_FRAME:
+        log(f"[kidnap] relocalized on frame {reloc}, the JAX CPU run on "
+            f"{JAX_CPU_KIDNAP_RELOC_FRAME}")
+    if not all(j in lost for j in range(KIDNAP_AT, after)):
+        raise AssertionError(f"blank frames {KIDNAP_AT}..{after - 1} not all lost: {lost[:10]}")
+    if reloc is None:
+        raise AssertionError("never relocalized after the blank frames")
+    if not batched:
+        raise AssertionError("relocalization made no pose-LM launch with B > 1")
+    _check_quality(res, JAX_CPU_KIDNAP_KEYFRAMES, JAX_CPU_KIDNAP_KF_ATE_M)
+    return res
+
+
+def _rows_equal(a, b, atol: float) -> bool:
+    return bool(torch.equal(a.word, b.word)
+                and (a.weight - b.weight).abs().max().item() <= atol)
+
+
+def _check_batched_launch(cap: tuple) -> dict:
+    """The captured relocalization batch (pose0 (B,4,4), PoseObs (B,M)):
+    the kernel twice (bit-identical) against the plain version per
+    candidate, and timed at its real B and M; then the same batch padded
+    to B = 5 with copies of its first problem, the shape the JAX
+    relocalizer always runs (`relocalization.py:220-226`), checked and
+    timed alike (`B5`)."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+
+    cam, pose0, obs = cap
+    obs = pose_opt.PoseObs(*[x.contiguous() for x in obs])
+    res = {}
+    for key, idx in (("real", list(range(obs.valid.shape[0]))),
+                     ("B5", list(range(obs.valid.shape[0])) + [0] * (5 - obs.valid.shape[0]))):
+        p0 = pose0[idx].contiguous()
+        ob = pose_opt.PoseObs(*[x[idx].contiguous() for x in obs])
+        B, M = ob.valid.shape
+
+        def kern(p0=p0, ob=ob):
+            return pose_opt_cuda.pose_optimization_cuda(cam, p0, ob)
+
+        a, b = kern(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"batched launch ({key}) not bit-repeatable")
+        errs, flips = [], []
+        for c in range(B):
+            obs1 = pose_opt.PoseObs(*[x[c] for x in ob])
+            pr, ir, _ = pose_opt.pose_optimization_ref(cam, p0[c], obs1)
+            errs.append((a[0][c] - pr).abs().max().item())
+            flips.append(_check_inliers(cam, a[0][c], a[1][c], a[2][c], pr, ir, obs1))
+        bound_ms, bound_by, sm_ms, flops = _bound_ms(p0, ob, cam)
+        res[key] = dict(B=B, M=M, inliers=a[2].tolist(), max_abs_err=errs, flips=flips,
+                        ms=_time_ms(kern), graph_ms=_time_kernel_ms(kern), bound_ms=bound_ms,
+                        bound_by=bound_by, sm_bound_ms=sm_ms, flops=flops)
+        log(f"[reuse] batched pose-LM launch ({key}) vs plain: " + json.dumps(res[key]))
+        if not max(errs) <= POSE_TOL:
+            raise AssertionError(f"batched kernel ({key}) != plain: pose err {max(errs):.3g}")
+    return dict(res["real"], B5=res["B5"])
+
+
+def phase_reuse(dev, seq, voc, map_path: Path, save_ms: float) -> dict:
+    """Map reuse: the loop phase's saved map loaded with
+    `SLAMSystem(..., reuse_map_path=...)` and localized against over the
+    240 frames (one device sync per frame); then a load from a copy without
+    BoW rows, and the first batched pose-LM launch held to the plain
+    version and timed."""
+    from orbslam_mapsave_tpu_torch.io import mapio
+    from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.pipeline import loop_closing, tracking
+
+    poses, frames = seq
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    rebuilds = []
+    rebuild = loop_closing.LoopCloser.rebuild_store
+
+    def counted(self, state):
+        rebuilds.append(1)
+        return rebuild(self, state)
+
+    with _patched([(loop_closing.LoopCloser, "rebuild_store", counted)]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam = _bench_system(dev, True, vocabulary=voc, reuse_map_path=str(map_path))
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        if not slam.localization_only or slam.tracking_state != tracking.LOST:
+            raise AssertionError("a loaded map must start LOST in localization-only mode")
+        if rebuilds:
+            raise AssertionError("the persisted BoW rows were rebuilt")
+        persisted = mapio.load_bow_store(map_path, voc.n_words, dev)
+        if not _rows_equal(slam.loop_closer.bow_store, persisted, 0.0):
+            raise AssertionError("the loaded BoW rows differ from the file's")
+        n_kf0, n_pt0, slots0 = slam.n_keyframes, slam.n_points, int(slam.map.n_pt)
+
+        captured, attempt = [], []
+        batched = pose_opt.pose_optimization_batched
+        rel = slam.tracker.relocalizer
+        batch = rel.batch
+
+        def capture(cam, pose0, obs):
+            if not captured and pose0.shape[0] > 1:
+                captured.append((cam, pose0.clone(), pose_opt.PoseObs(*[x.clone() for x in obs])))
+            return batched(cam, pose0, obs)
+
+        def keep_attempt(state, frame, cands, frame_id):
+            # the first attempt over several candidates, for the profile phase
+            # (a MapState is never written in place: keeping it is free)
+            if not attempt and len(cands) > 1:
+                attempt.append((state, frame, list(cands), frame_id))
+            return batch(state, frame, cands, frame_id)
+
+        states, frame_ms = [], np.empty(N_FRAMES)
+        with _patched([(pose_opt, "pose_optimization_batched", capture),
+                       (rel, "batch", keep_attempt)]):
+            pose_opt_cuda.reset_launches()
+            t_start = time.perf_counter()
+            for i in range(N_FRAMES):
+                t1 = time.perf_counter()
+                slam.track_rgbd(*frames[i], stamps[i])
+                torch.cuda.synchronize()
+                frame_ms[i] = 1e3 * (time.perf_counter() - t1)
+                states.append(slam.tracking_state)
+            wall = time.perf_counter() - t_start
+            launches, launches_b = pose_opt_cuda.launches, pose_opt_cuda.launches_batched
+
+        # the same map saved without BoW rows: the load rebuilds them
+        bare = map_path.with_name("map_without_bow.npz")
+        mapio.save_map(bare, mapio.load_map(map_path, dev), ts_epoch=mapio.read_ts_epoch(map_path))
+        again = _bench_system(dev, True, vocabulary=voc, reuse_map_path=str(bare))
+        if len(rebuilds) != 1 or not _rows_equal(again.loop_closer.bow_store, persisted, 1e-6):
+            raise AssertionError("a load without BoW rows must rebuild the persisted rows")
+    traj = slam.tracker.trajectory
+    ok = [i for i, (_, _, l) in enumerate(traj) if not l]
+    est = np.linalg.inv(np.asarray([traj[i][1] for i in ok])) if ok else np.zeros((0, 4, 4))
+    first = next((i for i, st in enumerate(states) if st == tracking.OK), None)
+    res = dict(frames=N_FRAMES, fps=N_FRAMES / wall, p50_ms=float(np.percentile(frame_ms, 50)),
+               p99_ms=float(np.percentile(frame_ms, 99)), max_ms=float(frame_ms.max()),
+               first_reloc_frame=first, localized_frames=len(ok),
+               lost_first=[i for i, (_, _, l) in enumerate(traj) if l and i > 0][:1],
+               ate_localized_m=traj_io.ate_rmse(stamps, poses, stamps[ok], est),
+               keyframes=slam.n_keyframes, points=slam.n_points, n_pt_slots=int(slam.map.n_pt),
+               loaded=(n_kf0, n_pt0, slots0), launches=launches, launches_batched=launches_b,
+               launches_b1=launches - launches_b, save_ms=save_ms, load_ms=load_ms,
+               file_mb=map_path.stat().st_size / 1e6,
+               jax_cpu=dict(first_reloc_frame=JAX_CPU_REUSE_FIRST_RELOC,
+                            localized_frames=JAX_CPU_REUSE_LOCALIZED,
+                            ate_localized_m=JAX_CPU_REUSE_ATE_M))
+    log("[reuse] " + json.dumps(res))
+    if first != JAX_CPU_REUSE_FIRST_RELOC:
+        raise AssertionError(f"first relocalized frame {first}, JAX CPU "
+                             f"{JAX_CPU_REUSE_FIRST_RELOC}")
+    if len(ok) < 0.9 * JAX_CPU_REUSE_LOCALIZED:
+        raise AssertionError(f"{len(ok)} frames localized, JAX CPU {JAX_CPU_REUSE_LOCALIZED}")
+    if not res["ate_localized_m"] <= JAX_CPU_REUSE_ATE_M + 0.01:
+        raise AssertionError(f"localized ATE {res['ate_localized_m']:.4f} m vs JAX CPU "
+                             f"{JAX_CPU_REUSE_ATE_M:.4f} m")
+    if (slam.n_keyframes, slam.n_points, int(slam.map.n_pt)) != (n_kf0, n_pt0, slots0):
+        raise AssertionError("localization-only mode changed the map's keyframes or points")
+    if not captured:
+        raise AssertionError("no relocalization ran a batched pose LM")
+    res["batched_launch"] = _check_batched_launch(captured[0])
+    if not attempt:
+        raise AssertionError("no relocalization attempt had several candidates")
+    res["attempt"] = (rel, attempt[0])
+    return res
+
+
+CLI_FRAMES = 60  # frames of the bench trajectory the run_slam check writes
+
+
+def _camera_yaml(path: Path):
+    """bench.py's camera and ORB settings in the reference's yaml format."""
+    keys = {"Camera.fx": 520.0, "Camera.fy": 520.0, "Camera.cx": W / 2, "Camera.cy": H / 2,
+            "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0, "Camera.p2": 0.0,
+            "Camera.width": W, "Camera.height": H, "Camera.fps": 30.0,
+            "Camera.bf": 520.0 * 0.08, "ThDepth": 50.0, "DepthMapFactor": 5000.0,
+            "ORBextractor.nFeatures": 2000, "ORBextractor.scaleFactor": 1.5,
+            "ORBextractor.nLevels": 4, "ORBextractor.iniThFAST": 20,
+            "ORBextractor.minThFAST": 7}
+    path.write_text("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in keys.items()))
+
+
+def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
+    """The remaining entry points on the card. `SLAMSystem.load_map`: a
+    system that has mapped frames 0-29 loads phase 7's map, continues LOST
+    in localization-only mode, relocalizes and tracks frames 0-29 without
+    changing the loaded map. `apps/run_slam.py` (default device: the card):
+    `--save-map` over a TUM copy of the bench trajectory's first CLI_FRAMES
+    frames (PNG files, the bench room), then `--reuse-map` on it: starts
+    LOST in localization-only mode, relocalizes, the map unchanged. The
+    dataset reader needs Pillow; a machine without it runs the first part
+    only and says so."""
+    import importlib.util
+
+    from orbslam_mapsave_tpu_torch.apps import run_slam
+    from orbslam_mapsave_tpu_torch.io import mapio, synthetic
+    from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
+    from orbslam_mapsave_tpu_torch.pipeline import tracking
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    poses, frames = seq
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    slam = _bench_system(dev, True, vocabulary=voc)
+    for i in range(30):
+        slam.track_rgbd(*frames[i], stamps[i])
+    slam.load_map(map_path)
+    loaded = mapio.map_summary(slam.map)
+    if not (slam.localization_only and slam.tracking_state == tracking.LOST):
+        raise AssertionError("load_map must continue LOST in localization-only mode")
+    states = []
+    for i in range(30):
+        slam.track_rgbd(*frames[i], stamps[i])
+        states.append(slam.tracking_state)
+    res = dict(load_map=dict(first_reloc_frame=states.index(tracking.OK)
+                             if tracking.OK in states else None,
+                             ok_frames=states.count(tracking.OK), loaded=loaded))
+    if res["load_map"]["first_reloc_frame"] is None or mapio.map_summary(slam.map) != loaded:
+        raise AssertionError(f"load_map: {res}")
+
+    if importlib.util.find_spec("PIL") is None:
+        res["run_slam"] = "not run: this machine has no Pillow, which the dataset reader needs"
+        log("[cli] " + json.dumps(res))
+        return res
+    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
+    data = synthetic.write_tum_sequence(tmp / "tum", K, poses[:CLI_FRAMES], width=W, height=H,
+                                        seed=11)
+    _camera_yaml(tmp / "cam.yaml")
+    vocabulary.save_binary(tmp / "voc.bin", voc)
+    base = ["--dataset", str(data), "--camera-yaml", str(tmp / "cam.yaml"),
+            "--vocabulary", str(tmp / "voc.bin")]
+    systems = []
+    init = system_mod.SLAMSystem.__init__
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        systems.append((self, self.localization_only, self.tracking_state))
+
+    cli_map = tmp / "cli_map.npz"
+    with _patched([(system_mod.SLAMSystem, "__init__", keep)]):
+        t0 = time.perf_counter()
+        run_slam.main(base + ["--out", str(tmp / "a.txt"), "--kf-out", str(tmp / "ak.txt"),
+                              "--save-map", str(cli_map)])
+        t1 = time.perf_counter()
+        run_slam.main(base + ["--out", str(tmp / "b.txt"), "--kf-out", str(tmp / "bk.txt"),
+                              "--reuse-map", str(cli_map)])
+        t2 = time.perf_counter()
+    (first, _, _), (reuse, loc_only, state0) = systems
+    lost = [lost for _, _, lost in reuse.tracker.trajectory]
+    res["run_slam"] = dict(device=str(first.device), slam_s=t1 - t0, reuse_s=t2 - t1,
+                           keyframes=first.n_keyframes, points=first.n_points,
+                           reuse_started=(loc_only, state0),
+                           localized_frames=lost.count(False), frames=len(lost),
+                           saved=mapio.map_summary(mapio.load_map(cli_map)),
+                           after_reuse=mapio.map_summary(reuse.map))
+    log("[cli] " + json.dumps(res))
+    r = res["run_slam"]
+    if first.device.type != "cuda" or not loc_only or state0 != tracking.LOST:
+        raise AssertionError("run_slam must run on the card and reuse must start LOST")
+    if r["localized_frames"] < 1 or r["after_reuse"] != r["saved"]:
+        raise AssertionError(f"run_slam --reuse-map: {r}")
+    return res
+
+
 def _profile_ranges(ranges: list) -> dict:
     """Each (name, fn) of `ranges` once unprofiled-range, then once inside a
     record_function range of its name, all in one torch.profiler session;
@@ -981,6 +1401,18 @@ def phase_profile_loop(lc, cap: dict, dev) -> dict:
     return {k: {kk: vv for kk, vv in v.items() if kk != "top"} for k, v in res.items()}
 
 
+def phase_profile_reloc(reuse: dict) -> dict:
+    """One relocalization attempt of the reuse run (its first over several
+    candidates) under torch.profiler: device kernels, host reads and the
+    top device operations."""
+    rel, (state, frame, cands, frame_id) = reuse["attempt"]
+    res = _profile_ranges([("relocalization attempt",
+                            lambda: rel.batch(state, frame, cands, frame_id))])
+    res = res["relocalization attempt"]
+    _log_profile(f"one relocalization attempt over {len(cands)} candidates", res)
+    return res
+
+
 def main() -> int:
     try:
         smi = phase_device()
@@ -991,11 +1423,17 @@ def main() -> int:
         phase_slice(dev, seq)
         _, mapper, captured = phase_mapping(dev, seq)
         phase_map_step(mapper, captured)
-        lres, lc, lcap = phase_loop(dev, seq)
-        phase_loop_replay(lc, lcap)
+        with tempfile.TemporaryDirectory() as tmp:
+            map_path = Path(tmp) / "map.npz"
+            lres, lc, lcap = phase_loop(dev, seq, map_path)
+            phase_loop_replay(lc, lcap)
+            kid = phase_kidnap(dev, seq, lc.voc)
+            reu = phase_reuse(dev, seq, lc.voc, map_path, lres["save_ms"])
+            phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
         phase_profile(dev)
         phase_profile_map_step(mapper, captured)
         phase_profile_loop(lc, lcap, dev)
+        phase_profile_reloc(reu)
     except Exception as e:  # every phase failure ends here, with no result
         import traceback
 
@@ -1023,6 +1461,17 @@ def main() -> int:
         "per_iter_us": t1["per_iter_us_M2048"],
         "edge_pass_share": t1["edge_pass_share"],
         "sm_bound_ms": t1["sm_bound_ms"],
+        "launches_batched": kid["launches_batched"] + reu["launches_batched"],
+        "launches_by_path": {"loop": lres["launches"], "kidnap": kid["launches"],
+                             "reuse": reu["launches"]},
+        "batched_B": reu["batched_launch"]["B"],
+        "batched_ms": reu["batched_launch"]["ms"],
+        "batched_graph_ms": reu["batched_launch"]["graph_ms"],
+        "batched_bound_ms": reu["batched_launch"]["bound_ms"],
+        "batched_max_abs_err": max(reu["batched_launch"]["max_abs_err"]),
+        "batched5_ms": reu["batched_launch"]["B5"]["ms"],
+        "batched5_graph_ms": reu["batched_launch"]["B5"]["graph_ms"],
+        "batched5_bound_ms": reu["batched_launch"]["B5"]["bound_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,139 @@
+"""Dataset-driven SLAM main: the reference's example executables as one CLI.
+
+Port of `orbslam_mapsave_tpu/apps/run_slam.py` for RGB-D input
+(`Examples/RGBD_LoadImages.cpp`, `RGBDFast_LoadImages.cpp`; a growing image
+directory with `--follow` stands in for a live sensor):
+
+    python -m orbslam_mapsave_tpu_torch.apps.run_slam --dataset /path/to/tum \\
+        --sensor rgbd --camera-yaml ORB_RGBD640x480.yaml --vocabulary voc.bin \\
+        --out traj.txt --kf-out kf.txt --save-map map.npz
+    python -m orbslam_mapsave_tpu_torch.apps.run_slam ... --reuse-map map.npz
+
+Honors the master Setting.yaml cascade (`Examples/Setting.yaml`: vocabulary
+path, camera settings path, reuse-map flag and path). Runs on the CUDA card
+unless `--device` names another (`--device cpu` runs the plain PyTorch
+path). `--sensor mono` / `stereo` raise NotImplementedError (later slices);
+the viewer options wait for the `viz/` slice and exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+_NO_VIEWER = ("{} needs the map viewer (viz/), which is not ported to "
+              "orbslam_mapsave_tpu_torch yet; use orbslam_mapsave_tpu.apps.run_slam")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--settings", help="master Setting.yaml (reference format)")
+    ap.add_argument("--camera-yaml", help="camera/ORB settings yaml")
+    ap.add_argument("--dataset", help="TUM/KITTI/imagedir dataset root")
+    ap.add_argument("--sensor", choices=["mono", "rgbd", "stereo"], default="rgbd")
+    ap.add_argument("--vocabulary", help=".bin/.txt vocabulary path")
+    ap.add_argument("--reuse-map", help="map file to load (localization-only reuse mode)")
+    ap.add_argument("--save-map", help="map file to write at the end")
+    ap.add_argument("--out", default="CameraTrajectory.txt")
+    ap.add_argument("--kf-out", default="KeyFrameTrajectory.txt")
+    ap.add_argument("--viewer-dir", help="(viz/ slice, not ported)")
+    ap.add_argument("--html-view", help="(viz/ slice, not ported)")
+    ap.add_argument("--html-live", type=int, default=0, help="(viz/ slice, not ported)")
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--follow", action="store_true",
+                    help="treat --dataset as a GROWING directory (live-sensor stand-in): "
+                         "poll for new frames, drop backlog, stop after --follow-timeout "
+                         "idle seconds")
+    ap.add_argument("--follow-timeout", type=float, default=5.0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu runs the plain path)")
+    args = ap.parse_args(argv)
+    for flag, value in (("--viewer-dir", args.viewer_dir), ("--html-view", args.html_view),
+                        ("--html-live", args.html_live)):
+        if value:
+            raise SystemExit(_NO_VIEWER.format(flag))
+
+    from .. import config as config_mod
+    from ..io import dataset as dataset_mod
+    from ..pipeline import system as system_mod
+
+    cfg = (config_mod.load_master_settings(args.settings) if args.settings
+           else config_mod.SystemConfig())
+    if args.camera_yaml:
+        config_mod.load_camera_settings(args.camera_yaml, cfg)
+    if args.reuse_map:
+        cfg.reuse_map, cfg.reuse_map_path = True, args.reuse_map
+    if args.vocabulary:
+        cfg.vocabulary_path = args.vocabulary
+    if cfg.use_viewer:
+        print(_NO_VIEWER.format("UseViewer") + ": running without it", file=sys.stderr)
+    dataset_root = args.dataset or cfg.load_image_path
+
+    voc = None
+    if cfg.vocabulary_path and Path(cfg.vocabulary_path).is_file():
+        from ..vocab import vocabulary as voc_mod
+
+        print(f"Loading vocabulary {cfg.vocabulary_path} ...")
+        t0 = time.time()
+        voc = voc_mod.load(cfg.vocabulary_path)
+        print(f"Vocabulary loaded ({voc.n_words} words) in {time.time() - t0:.2f}s")
+
+    sensor = {"mono": system_mod.Sensor.MONOCULAR, "stereo": system_mod.Sensor.STEREO,
+              "rgbd": system_mod.Sensor.RGBD}[args.sensor]
+    slam = system_mod.SLAMSystem(
+        cfg, sensor, vocabulary=voc,
+        reuse_map_path=cfg.reuse_map_path if cfg.reuse_map else None, device=args.device)
+
+    def log(i, extra):
+        state = ["WAIT", "INIT", "OK", "LOST"][slam.tracking_state]
+        print(f"  frame {i}: {state} kfs={slam.n_keyframes} pts={slam.n_points} {extra}",
+              file=sys.stderr)
+
+    t_track = []
+    if args.follow:
+        src = dataset_mod.FollowSource(
+            dataset_root, depth_factor=cfg.camera.depth_map_factor,
+            fps=cfg.camera.fps, idle_timeout=args.follow_timeout)
+        print(f"Following {dataset_root} ({args.sensor}), idle timeout "
+              f"{args.follow_timeout}s ...")
+        for i, (t, gray, depth) in enumerate(src.frames()):
+            t0 = time.perf_counter()
+            slam.track_rgbd(gray, depth, t)
+            t_track.append(time.perf_counter() - t0)
+            if i % 30 == 0:
+                log(i, f"dropped={src.n_dropped}")
+            if args.max_frames and src.n_seen >= args.max_frames:
+                break
+        print(f"follow ended: {src.n_seen} frames tracked, {src.n_dropped} dropped "
+              "(backlog policy)")
+    else:
+        ds = dataset_mod.open_dataset(dataset_root, depth_factor=cfg.camera.depth_map_factor)
+        n = len(ds) if not args.max_frames else min(len(ds), args.max_frames)
+        print(f"Tracking {n} frames from {dataset_root} ({args.sensor}) ...")
+        for i in range(n):
+            t, gray, depth = ds[i]
+            t0 = time.perf_counter()
+            slam.track_rgbd(gray, depth, t)
+            t_track.append(time.perf_counter() - t0)
+            if i % 30 == 0:
+                log(i, f"({1e3 * t_track[-1]:.0f} ms)")
+
+    if t_track:
+        med = float(np.median(t_track))
+        print(f"median track time: {1e3 * med:.1f} ms ({1.0 / med:.1f} fps)")
+    slam.save_camera_trajectory(args.out)
+    slam.save_keyframe_trajectory(args.kf_out)
+    print(f"trajectories saved to {args.out}, {args.kf_out}")
+    if args.save_map:
+        slam.save_map(args.save_map)
+        print(f"map saved to {args.save_map}")
+    slam.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -5,10 +5,12 @@ parity (`src/Optimizer.cc:239-451`): 4 rounds x 10 LM iterations, Huber
 (sqrt 5.991 mono / sqrt 7.815 stereo) on the first two rounds only, and
 inter-round outlier reclassification on raw chi2.
 
-`pose_optimization` dispatches on the device of its inputs: CPU tensors take
-the plain PyTorch schedule (`pose_optimization_ref`), CUDA tensors the
-hand-written kernel in `pose_opt_cuda.py`. There is no fallback between the
-two: a CUDA input launches the kernel or raises.
+`pose_optimization` (one problem) and `pose_optimization_batched` (B problems
+with a leading batch dimension, relocalization's candidates) dispatch on the
+device of their inputs: CPU tensors take the plain PyTorch schedule
+(`pose_optimization_ref`, once per problem), CUDA tensors the hand-written
+kernel in `pose_opt_cuda.py`, one launch for all B problems. There is no
+fallback between the two: a CUDA input launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -143,3 +145,21 @@ def pose_optimization(cam: projection.Camera, pose0_cw: torch.Tensor,
     pose, inlier, n = pose_opt_cuda.pose_optimization_cuda(
         cam, pose0_cw[None], PoseObs(*[x[None] for x in obs]))
     return pose[0], inlier[0], n[0]
+
+
+def pose_optimization_batched(cam: projection.Camera, pose0_cw: torch.Tensor,
+                              obs: PoseObs):
+    """B independent problems: pose0_cw (B,4,4), obs with a leading B on
+    every field. Returns (pose_cw (B,4,4), inlier (B,M), n_inliers (B,)).
+
+    The JAX relocalizer runs `vmap(pose_optimization_xla)` over its
+    candidates (`relocalization.py:80-89,164-165`); here CUDA tensors make
+    ONE kernel launch for all B problems and CPU tensors run the plain
+    schedule per problem."""
+    if pose0_cw.device.type == "cpu":
+        outs = [pose_optimization_ref(cam, pose0_cw[b], PoseObs(*[x[b] for x in obs]))
+                for b in range(pose0_cw.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
+    from . import pose_opt_cuda
+
+    return pose_opt_cuda.pose_optimization_cuda(cam, pose0_cw, obs)

@@ -40,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = 0  # kernel launches since the last reset (main-path evidence)
+launches_batched = 0  # those of them with B > 1 (relocalization's candidates)
 
 _lib = None
 _lock = threading.Lock()
@@ -47,8 +48,8 @@ _max_edges: dict[int, int] = {}  # per device: edges one block can stage
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_batched
+    launches = launches_batched = 0
 
 
 def _nvcc() -> str:
@@ -121,7 +122,7 @@ def pose_optimization_cuda(cam: projection.Camera, pose0_cw: torch.Tensor,
     on one CUDA device. Returns (pose_cw (B,4,4) orthonormalized, inlier
     (B,M) bool, n_inliers (B,) i32), freshly allocated, on torch's current
     stream."""
-    global launches
+    global launches, launches_batched
     dev = pose0_cw.device
     tensors = (pose0_cw, *obs)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -151,4 +152,5 @@ def pose_optimization_cuda(cam: projection.Camera, pose0_cw: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"pose_lm_kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_batched += int(B > 1)
     return pose, inlier, n

@@ -23,7 +23,6 @@ corrected, so the port keeps them although it could read at once. RANSAC
 draws its hypotheses from a `torch.Generator` seeded with the keyframe
 slot (the JAX PRNG stream cannot be reproduced). Duplicate-index writes are
 order-free integer `scatter_reduce`s, so card runs repeat bit for bit.
-`rebuild_store` (map reuse) waits for the reuse slice.
 """
 
 from __future__ import annotations
@@ -205,6 +204,22 @@ class LoopCloser:
         (`KeyFrame::ComputeBoW`, `src/KeyFrame.cc:781-789`)."""
         out = self.transform(state.kf_desc[kf], state.kf_kp_valid[kf])
         return vocabulary.sparse_bow(out["word"], out["weight"], self.bow_store.word.shape[1])
+
+    def rebuild_store(self, state: ms.MapState) -> None:
+        """Recompute the BoW row of every valid keyframe of a loaded map
+        (`loop_closing.py:185-220`): the reference rebuilds its
+        KeyFrameDatabase after `LoadMap` with `ComputeBoW` +
+        `KeyFrameDatabase.add` per keyframe (`src/System.cc:155-171`);
+        without it relocalization would only see keyframes added after the
+        load. Invalid slots keep empty rows."""
+        self.bow_store = None
+        self._ensure_store(state)
+        m = self.bow_store.word.shape[1]
+        word, weight = self.bow_store.word.clone(), self.bow_store.weight.clone()
+        for kf in torch.nonzero(state.kf_valid).flatten().tolist():
+            out = self.transform(state.kf_desc[kf], state.kf_kp_valid[kf])
+            word[kf], weight[kf] = vocabulary.sparse_bow(out["word"], out["weight"], m)
+        self.bow_store = database.SparseBowStore(word=word, weight=weight)
 
     # -- main entry --------------------------------------------------------
     def process(self, state: ms.MapState, kf: int) -> ms.MapState:

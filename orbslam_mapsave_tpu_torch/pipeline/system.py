@@ -1,15 +1,16 @@
 """System facade — the public API mirroring the reference's `System` class.
 
 Port of `orbslam_mapsave_tpu/pipeline/system.py` for RGB-D input:
-`SLAMSystem(cfg, Sensor.RGBD)` tracks RGB-D frames and runs a local-mapping
+`SLAMSystem(cfg, Sensor.RGBD)` tracks RGB-D frames, runs a local-mapping
 pass (triangulation, fuse, local BA, keyframe culling) at every keyframe
-(`enable_mapping=False` tracks only); given a vocabulary it also closes
-loops (BoW detection, Sim3, loop fusion, essential graph, incremental
-global BA) unless `enable_loop_closing=False`. Relocalization against the
-BoW database, map reuse, monocular and stereo input are later slices and
-raise NotImplementedError: with a vocabulary, the frame on which tracking
-is lost raises (without one, the tracker retries against its reference
-keyframe every frame).
+(`enable_mapping=False` tracks only), relocalizes when tracking is lost
+(BoW candidates with a vocabulary, else the newest keyframes), and given a
+vocabulary closes loops (BoW detection, Sim3, loop fusion, essential
+graph, incremental global BA) unless `enable_loop_closing=False`. Maps are
+saved and loaded (`save_map`, `load_map`, `reuse_map_path`): a loaded map
+starts LOST in localization-only mode and relocalizes against it
+(`System.cc:148-195`, `Tracking.cc:167-171`). Monocular and stereo input
+are later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import torch
 
 from .. import config as config_mod
 from ..geometry import projection
+from ..io import mapio
 from ..io import trajectory as traj_io
 from ..ops import orb
 from ..slammap import mapstate as ms
 from . import frame as frame_mod
-from . import local_mapping, loop_closing, tracking
+from . import fused_step, local_mapping, loop_closing, relocalization, tracking
 
 
 class Sensor(enum.Enum):
@@ -38,8 +40,9 @@ class Sensor(enum.Enum):
 def _not_yet(what: str):
     return NotImplementedError(
         f"{what} is not ported to orbslam_mapsave_tpu_torch yet: this "
-        "package runs RGB-D tracking, local mapping and loop closing "
-        "(Sensor.RGBD); use orbslam_mapsave_tpu for the rest")
+        "package runs RGB-D tracking, local mapping, loop closing, "
+        "relocalization and map reuse (Sensor.RGBD); use orbslam_mapsave_tpu "
+        "for the rest")
 
 
 class SLAMSystem:
@@ -54,8 +57,6 @@ class SLAMSystem:
                  enable_mapping: bool = True, device=None):
         if sensor != Sensor.RGBD:
             raise _not_yet(f"{sensor.name} input")
-        if reuse_map_path:
-            raise _not_yet("map reuse (reuse_map_path)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -75,8 +76,11 @@ class SLAMSystem:
             scale_factor=cfg.orb.scale_factor, ini_th=cfg.orb.ini_th_fast,
             min_th=cfg.orb.min_th_fast, max_kp=cfg.max_keypoints)
         self.builder = frame_mod.FrameBuilder(self.cam, self.spec, self.device)
-        self.map = ms.empty_map(cfg.max_keyframes, cfg.max_points,
-                                cfg.max_keypoints, self.device)
+        if reuse_map_path:
+            self.map = mapio.load_map(reuse_map_path, self.device)
+        else:
+            self.map = ms.empty_map(cfg.max_keyframes, cfg.max_points,
+                                    cfg.max_keypoints, self.device)
         # thDepth in meters = bf/fx * ThDepth (Tracking.cc:227-232)
         tcfg = tracking.TrackerConfig(
             max_frames=int(c.fps),
@@ -93,13 +97,40 @@ class SLAMSystem:
             self.cam, self.builder, self.map, tcfg,
             n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor,
             mapper=self.mapper)
-        self.tracker.bow_relocalization = vocabulary is not None
         self.loop_closer = None
         if enable_loop_closing and vocabulary is not None:
             self.loop_closer = loop_closing.LoopCloser(
                 self.cam, self.builder.inv_level_sigma2, vocabulary,
                 scale_factors=self.builder.scale_factors,
                 n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+        # relocalization (Tracking.cc:1601): BoW candidates from the loop
+        # closer's store when there is one, the newest keyframes otherwise
+        self.tracker.relocalizer = relocalization.Relocalizer(
+            self.cam, self.builder.inv_level_sigma2, vocabulary,
+            bow_store_ref=((lambda: self.loop_closer.bow_store)
+                           if self.loop_closer is not None else None))
+        self.localization_only = False  # ActivateLocalizationMode analogue
+        if reuse_map_path:
+            # reuse mode starts LOST in localization-only mode, relocalizing
+            # against the loaded map (System.cc:90, Tracking.cc:167-171)
+            self.tracker.ts_epoch = mapio.read_ts_epoch(reuse_map_path)
+            self.localization_only = True
+            self.tracker.state = tracking.LOST
+            self.tracker.disallow_kf = True
+            self._restore_bow(reuse_map_path)
+
+    def _restore_bow(self, path) -> None:
+        """The loop closer's BoW store over a loaded map: the persisted rows
+        when the file holds them for this vocabulary and keyframe capacity,
+        else the rebuild the reference always pays (`src/System.cc:162-163`)."""
+        lc = self.loop_closer
+        if lc is None:
+            return
+        store = mapio.load_bow_store(path, lc.voc.n_words, self.device)
+        if store is not None and store.word.shape[0] == self.map.kf_capacity:
+            lc.bow_store = store
+        else:
+            lc.rebuild_store(self.map)
 
     # ------ frame entry point (System.cc:261-490) ------
     def track_rgbd(self, image, depth, timestamp: float):
@@ -119,6 +150,9 @@ class SLAMSystem:
             # (`src/Tracking.cc:712-718`)
             self.tracker.needs_reset = False
             self.reset()
+            return
+        if self.localization_only:
+            self.tracker.new_kf_slots.clear()
             return
         lc = self.loop_closer
         if lc is not None and lc.pending_gba is not None:
@@ -173,6 +207,7 @@ class SLAMSystem:
         trk.ctrl = None
         trk._trajectory.clear()
         trk.needs_reset = False
+        trk.mb_vo = False
         trk.ts_epoch = None
         trk.n_pt_watermark = 0
         trk.n_kf_watermark = 0
@@ -192,13 +227,51 @@ class SLAMSystem:
         `isFinishedGBA` at shutdown, `src/System.cc:535-550`)."""
         lc = self.loop_closer
         if lc is not None:
-            self.map = lc.poll_detect(self.map)
-            self.map = lc.poll_detect(self.map)
+            if not self.localization_only:
+                self.map = lc.poll_detect(self.map)
+                self.map = lc.poll_detect(self.map)
             self.map = lc.poll_gba(self.map, force=True)
             self.tracker.map = self.map
 
     def shutdown(self):
         self.flush_gba()
+
+    # ------ mode switches (System.cc:433-456,492-533) ------
+    def activate_localization_mode(self):
+        self.localization_only = True
+        self.tracker.disallow_kf = True
+        if self.tracker.ctrl is not None:
+            self.tracker.ctrl = self.tracker.ctrl._replace(allow_kf=False)
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.disallow_kf = False
+        if self.tracker.ctrl is not None:
+            self.tracker.ctrl = self.tracker.ctrl._replace(allow_kf=True)
+
+    # ------ persistence (System.cc:552-574) ------
+    def save_map(self, path: str | Path = "Slam_latest_Map.bin"):
+        """Write the map (`io.mapio`) after draining the loop closer, with
+        the BoW rows when a loop closer holds them."""
+        self.flush_gba()
+        lc = self.loop_closer
+        mapio.save_map(path, self.map, ts_epoch=self.tracker.ts_epoch or 0.0,
+                       bow_store=lc.bow_store if lc is not None else None,
+                       voc_n_words=lc.voc.n_words if lc is not None else None)
+
+    def load_map(self, path: str | Path):
+        """Replace the map with a saved one (`System::LoadMap`) and continue
+        LOST in localization-only mode, relocalizing against it."""
+        self.map = mapio.load_map(path, self.device)
+        self.tracker.ts_epoch = mapio.read_ts_epoch(path)
+        self.tracker.map = self.map
+        self._restore_bow(path)
+        self.tracker.state = tracking.LOST
+        self.localization_only = True
+        self.tracker.disallow_kf = True
+        if self.tracker.ctrl is not None:
+            self.tracker.ctrl = self.tracker.ctrl._replace(
+                mode=fused_step.MODE_LOST, allow_kf=False, has_velocity=False)
 
     # ------ trajectory export (System.cc:675-836) ------
     def save_camera_trajectory(self, path: str | Path):
@@ -223,6 +296,16 @@ class SLAMSystem:
     def save_localization_trajectory(self, path: str | Path):
         tr = self.tracker.trajectory
         traj_io.save_matrix_trajectory(path, [p for _, p, l in tr if not l])
+
+    def save_stereo_keyframe_trajectory(self, path: str | Path):
+        """`System::SaveStereoKeyFrameTrajectory` (`src/System.cc:789-836`):
+        per-FRAME 3x4 [Rwc|twc] rows (the reference walks the frame lists
+        despite the name), with the first keyframe at the origin."""
+        self.flush_gba()
+        valid = self.map.kf_valid.cpu().numpy()
+        Two = (np.linalg.inv(self.map.kf_pose[int(np.nonzero(valid)[0][0])].cpu().numpy())
+               if valid.any() else np.eye(4))
+        traj_io.save_matrix_trajectory(path, [p @ Two for _, p, _ in self.tracker.trajectory])
 
     # ------ introspection (System.h:144-160 analogues) ------
     @property

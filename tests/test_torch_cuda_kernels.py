@@ -133,3 +133,19 @@ def test_wrapper_rejects_bad_inputs(dev):
             CAM, pose0, obs._replace(valid=obs.valid.float()))
     with pytest.raises(ValueError):  # batch of poses != batch of edges
         pose_opt_cuda.pose_optimization_cuda(CAM, _eye(dev, 2), obs)
+
+
+def test_batched_dispatcher_one_launch(dev):
+    """`pose_optimization_batched` on the card: relocalization's candidate
+    batch (B = 5, M = 2048) is ONE launch, counted as batched, and each
+    problem matches the plain version."""
+    obs = batch_obs([make_problem(2048, seed=30 + b) for b in range(5)], dev)
+    pose0 = _eye(dev, 5)
+    pose_opt_cuda.reset_launches()
+    pose, inl, n = pose_opt.pose_optimization_batched(CAM, pose0, obs)
+    torch.cuda.synchronize()
+    assert (pose_opt_cuda.launches, pose_opt_cuda.launches_batched) == (1, 1)
+    for b in range(5):
+        p_ref, inl_ref, n_ref = _plain(obs, pose0, b)
+        assert (pose[b] - p_ref).abs().max().item() <= TOL_POSE
+        assert torch.equal(inl[b], inl_ref) and int(n[b]) == int(n_ref)

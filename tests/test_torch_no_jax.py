@@ -1,8 +1,9 @@
 """The port never reaches for jax or the JAX package: in a fresh process
 where both are unimportable, import every module of
 orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU, without a
-vocabulary and with a small trained one and loop closing on; and no source
-line of the port or of chip_smoke.py imports either."""
+vocabulary and with a small trained one and loop closing on, then save that
+map and relocalize one frame against it in reuse mode; and no source line
+of the port or of chip_smoke.py imports either."""
 
 import subprocess
 import sys
@@ -43,6 +44,13 @@ pose = slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
 store = slam.loop_closer.bow_store
 assert pose.shape == (4, 4) and slam.n_keyframes == 1 and float(store.weight[0].sum()) > 0.99
 slam.shutdown()
+import tempfile, pathlib
+path = pathlib.Path(tempfile.mkdtemp()) / "map.npz"
+slam.save_map(path)
+slam = system.SLAMSystem(cfg, system.Sensor.RGBD, vocabulary=voc, reuse_map_path=str(path),
+                         device="cpu")
+slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
+assert slam.localization_only and slam.tracking_state == 2 and slam.n_keyframes == 1
 assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names), slam.n_points)

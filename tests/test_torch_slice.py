@@ -89,6 +89,17 @@ def test_keyframes_and_map(runs):
                                ts.map.kf_pose.numpy()[jv], atol=1e-4)
 
 
+def test_stereo_keyframe_trajectory_matches_jax(runs, tmp_path):
+    """`save_stereo_keyframe_trajectory` (per-frame [Rwc|twc] rows, the
+    first keyframe at the origin): the same rows as JAX's within 1e-4."""
+    js, ts, _ = runs
+    js.save_stereo_keyframe_trajectory(tmp_path / "j.txt")
+    ts.save_stereo_keyframe_trajectory(tmp_path / "t.txt")
+    rj, rt = (np.loadtxt(tmp_path / f) for f in ("j.txt", "t.txt"))
+    assert rj.shape == rt.shape == (10, 12)
+    np.testing.assert_allclose(rt, rj, atol=1e-4)
+
+
 def test_trajectory_quality(runs, seq):
     _, ts, _ = runs
     gt_ts = 1000.0 + np.arange(len(seq["poses"])) / 30.0
@@ -179,38 +190,88 @@ def test_lost_right_after_init_resets(seq):
     assert ts.tracking_state == tracking.OK and ts.n_keyframes == 1
 
 
+def _hold_off_reset(tracker, hook: str):
+    """Keep the lost-after-init reset flag down after each outcome read
+    (`_record` in the port, `flush` in JAX), so a loss with few keyframes
+    takes the relocalization path."""
+    read = getattr(tracker, hook)
+
+    def read_past_the_ladder(*a):
+        read(*a)
+        tracker.needs_reset = False
+
+    setattr(tracker, hook, read_past_the_ladder)
+
+
+def _counting(reloc, hits: list):
+    """Wrap a Relocalizer's `relocalize` to note each call's success."""
+    relocalize = reloc.relocalize
+
+    def counted(*a):
+        out = relocalize(*a)
+        hits.append(out is not None)
+        return out
+
+    reloc.relocalize = counted
+
+
+KIDNAP = [0, 1, 2, 3, 4, 5, None, 2, 3, 4, 5, 6, 7, 8, 9]  # None: a blank frame
+
+
 @pytest.mark.parametrize("with_vocabulary", [False, True])
-def test_lost_later_with_a_vocabulary_raises(seq, monkeypatch, with_vocabulary):
-    """Lost past the early-reset ladder (its flag held off here): without a
-    vocabulary the tracker retries its reference keyframe, as the JAX
-    tracker's fallback does; with one, the JAX tracker relocalizes against
-    the BoW database, which is not ported, so the port raises."""
+def test_lost_later_relocalizes_as_jax(seq, tmp_path, with_vocabulary):
+    """Lost on a blank frame after frames 0-5 (past the early-reset ladder:
+    its flag held off in both packages), then the camera jumps back to
+    frame 2's view and the sequence runs on to frame 9. Both packages
+    relocalize through their Relocalizer on the first frame after the blank
+    — without a vocabulary over the newest keyframes, with one (and loop
+    closing on, so a BoW store exists) over BoW candidates — to the same
+    pose, and track on with the same states and keyframes: poses within
+    1e-4, frame by frame. The JAX tracker reads its outcomes every frame,
+    as the port does."""
     from orbslam_mapsave_tpu_torch.pipeline import tracking
     from orbslam_mapsave_tpu_torch.vocab import vocabulary
 
     frames = list(dataset.TUMDataset(seq["root"], depth_factor=5000.0))
-    voc = None
+    kw_t, kw_j = {}, {}
     if with_vocabulary:
         fr = _system(tcfg, tsys, device="cpu").builder.build(frames[0][1], 0.0, frames[0][2])
         voc = vocabulary.train(fr.desc[fr.valid].numpy(), k=4, L=2, seed=1)
-    ts = _system(tcfg, tsys, device="cpu", vocabulary=voc)
-    trk = ts.tracker
-    record = trk._record
+        vocabulary.save_binary(tmp_path / "voc.bin", voc)
+        from orbslam_mapsave_tpu.vocab import vocabulary as jvocabulary
 
-    def record_past_the_ladder(out, t):
-        record(out, t)
-        trk.needs_reset = False
-
-    monkeypatch.setattr(trk, "_record", record_past_the_ladder)
-    for t, gray, depth in frames[:3]:
+        kw_t, kw_j = dict(vocabulary=voc), dict(vocabulary=jvocabulary.load_binary(
+            tmp_path / "voc.bin"))
+    systems = []
+    for cfg_mod, sys_mod, kw, hook in ((jcfg, jsys, kw_j, "flush"),
+                                       (tcfg, tsys, dict(kw_t, device="cpu"), "_record")):
+        s = _system(cfg_mod, sys_mod, **kw)
+        if with_vocabulary:  # _system turns loop closing off; the BoW store needs it
+            s = sys_mod.SLAMSystem(s.cfg, sys_mod.Sensor.RGBD, enable_mapping=False, **kw)
+        _hold_off_reset(s.tracker, hook)
+        hits: list = []
+        _counting(s.tracker.relocalizer, hits)
+        systems.append((s, hits))
+    (js, jhits), (ts, thits) = systems
+    js.tracker.fetch_every = 1
+    blank = (np.zeros_like(frames[0][1]), np.zeros_like(frames[0][2]))
+    for j, i in enumerate(KIDNAP):
+        gray, depth = blank if i is None else frames[i][1:]
+        t = 1000.0 + j / 30.0
+        js.track_rgbd(gray, depth, t)
         ts.track_rgbd(gray, depth, t)
-    t, gray, depth = frames[3]
+        assert js.tracker.state == ts.tracker.state, j
+        assert (js.n_keyframes, js.n_points) == (ts.n_keyframes, ts.n_points), j
+        pj, pt = np.asarray(js.tracker.ctrl.pose), ts.tracker.ctrl.pose.numpy()
+        assert np.abs(pj - pt).max() <= 1e-4, (j, np.abs(pj - pt).max())
+        if i is None:
+            assert ts.tracking_state == tracking.LOST
+    # one failed attempt on the blank frame, one success on the next
+    assert thits == jhits == [False, True]
+    assert [lost for _, _, lost in ts.tracker.trajectory] == [i is None or j == 7
+                                                              for j, i in enumerate(KIDNAP)]
     if with_vocabulary:
-        with pytest.raises(NotImplementedError, match="relocalization"):
-            ts.track_rgbd(np.zeros_like(gray), np.zeros_like(depth), t)
-    else:
-        ts.track_rgbd(np.zeros_like(gray), np.zeros_like(depth), t)
-        assert ts.tracking_state == tracking.LOST and ts.tracker.trajectory[-1][2]
+        assert ts.loop_closer.bow_store is not None
 
 
 def test_cpu_run_used_plain_pose_opt(runs):
@@ -228,12 +289,10 @@ def test_device_defaults_to_the_card(monkeypatch):
     assert ts.map.pt_pos.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(sensor="STEREO"),
-                                dict(enable_mapping=True, reuse_map_path="m.bin"),
-                                dict(enable_mapping=False, reuse_map_path="m.bin")])
+@pytest.mark.parametrize("kw", [dict(sensor="STEREO")])
 def test_unported_options_raise(kw):
-    """Stereo input and map reuse wait for their slices (a vocabulary and
-    loop closing are ported: tests/test_torch_no_jax.py runs them)."""
+    """Stereo and monocular input wait for their slices (a vocabulary, loop
+    closing and map reuse are ported)."""
     cfg = tcfg.SystemConfig()
     kw = dict(kw)
     sensor = tsys.Sensor[kw.pop("sensor", "RGBD")]
