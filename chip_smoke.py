@@ -19,6 +19,9 @@ no result):
               of launches), the plain version (B = 1), per-LM-iteration
               microseconds as (t(n_iters=10) - t(n_iters=5)) / 20 at M = 2048
               and M = 128, and the share of an iteration that grows with M.
+              Then the monocular path's problem, M = 2048 with every edge
+              mono (ur = -1): pose <= 1e-4 from the plain version, no
+              inlier flip, timed and bounded alike.
 4. slice    — the benchmark sequence (bench.py: 640x480, 2000 ORB features,
               circle_trajectory(240, radius=0.55, revs=1.30) in a
               BoxRoom(2.0, seed=11), u8 image + f16 depth) through
@@ -56,6 +59,16 @@ no result):
               start poses (the loop closer's own solve returns its input):
               twice on the card (bit-identical), once on the CPU, Sim3
               poses within 1e-4 and moved by more than that.
+    mono    — tools/bench_mono.py's workload: SLAMSystem(cfg, MONOCULAR)
+              over the u8 images of the sequence (max_keyframes=96) with
+              phase 7's vocabulary and loop closing on (Sim3 with a free
+              scale); untimed over the first 24 frames, reset(), one timed
+              pass: the bootstrap on the JAX CPU run's frame, its lost
+              frames, keyframes within 20%, Sim3-aligned keyframe ATE within
+              1 cm, its loop count, every loop's global-BA job applied, no
+              BA lane dropped, one pose-LM launch per pose optimization;
+              frames/s, p50/p99/max ms, the bootstrap's initializer and GBA
+              ms and the loop stages' ms (synced inside the timed pass).
 9. kidnap   — lost and found in the headline configuration: SLAMSystem with
               phase 7's vocabulary over frames 0-149, 3 blank frames (zero
               image and depth), then the images of frames 100-239 with
@@ -63,7 +76,9 @@ no result):
               relocalization (BoW candidates, batched EPnP RANSAC, one
               pose-LM launch of B = candidates per LM step) on the resumed
               frames, printed beside the JAX CPU run's frame; keyframes
-              within 20% and keyframe ATE within 1 cm of the JAX CPU run.
+              within 20% and keyframe ATE within 1 cm of the JAX CPU run;
+              at least the JAX CPU run's loops (one-sided: the port's own
+              vocabulary may close more), each loop's global-BA job applied.
               Each attempt and its stages are timed (synced) and its
               candidates and inliers printed; pose-LM launches at B > 1 and
               B = 1 are counted.
@@ -81,12 +96,15 @@ no result):
               padded to B = 5 as the JAX relocalizer pads it, against the
               plain version per candidate (pose 1e-4, inlier flips only at a
               gate), timed as one synchronous call and as CUDA-graph device
-              time.
+              time; each candidate's kernel and plain-f32 poses against the
+              plain version in float64 are printed, with how far plain f32
+              lands from float64 over 12 shuffled edge orders.
     cli     — the other entry points on the card: `SLAMSystem.load_map` on
               a system that has mapped 30 frames (continues LOST in
               localization-only mode, relocalizes, leaves the loaded map as
               it is), and `apps/run_slam.py --save-map`, then `--reuse-map`,
-              on a TUM copy of 60 bench frames (needs Pillow to read PNGs).
+              on a TUM copy of 60 bench frames (needs Pillow to read PNGs),
+              and `--sensor mono` on the same images.
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
@@ -95,9 +113,11 @@ no result):
               host reads (stream syncs) and top device operations (last: a
               profile slows later launches).
 
-The last lines are the loop slice's summary, a JSON record of the kernels
-(`launches` from the loop slice, `launches_batched` the B > 1 launches of
-the kidnap and reuse runs), the card's `nvidia-smi` name/power line, and
+The last lines are the loop and mono slices' summaries, a JSON record of
+the kernels
+(`launches` from the loop slice, `launches_by_path` each slice's,
+`launches_batched` the B > 1 launches of the kidnap and reuse runs), the
+card's `nvidia-smi` name/power line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -143,6 +163,7 @@ JAX_CPU_LOOP_EVENTS = [(217, 37)]  # (query, match) keyframes' frame ids
 JAX_CPU_KIDNAP_KEYFRAMES = 22
 JAX_CPU_KIDNAP_KF_ATE_M = 0.023985717061088794
 JAX_CPU_KIDNAP_RELOC_FRAME = 153
+JAX_CPU_KIDNAP_LOOPS = 0
 # map reuse (`--reuse`): the headline run's map (23 keyframes, 26,168
 # points, 4,227,757 bytes) reloaded; relocalized on frame 0, 72 frames
 # localized (1-72), lost from frame 73 on (the same stale reference
@@ -150,6 +171,19 @@ JAX_CPU_KIDNAP_RELOC_FRAME = 153
 JAX_CPU_REUSE_FIRST_RELOC = 0
 JAX_CPU_REUSE_LOCALIZED = 72
 JAX_CPU_REUSE_ATE_M = 0.023734994481243745
+# tools/bench_mono.py's workload (`--mono`): the same 240 frames, the u8
+# image alone, SLAMSystem(cfg, MONOCULAR) with max_keyframes=96, bench.py's
+# vocabulary and loop closing on (Sim3 with a free scale), one pass from a
+# fresh system, outcomes read every frame: bootstrapped on frame 2 (frames 0
+# and 1 lost), 46 keyframes, 21,336 points, Sim3-aligned kf ATE 0.002926 m,
+# 1 loop (query frame 158, match frame 3, 397 inliers), its global-BA job
+# applied, none aborted, 0 BA lanes dropped
+JAX_CPU_MONO_BOOTSTRAP_FRAME = 2
+JAX_CPU_MONO_LOST_FRAMES = [0, 1]
+JAX_CPU_MONO_KEYFRAMES = 46
+JAX_CPU_MONO_KF_ATE_SIM3_M = 0.0029256094468043227
+JAX_CPU_MONO_EVENTS = [(158, 3)]  # (query, match) keyframes' frame ids
+MONO_MAX_KEYFRAMES = 96  # tools/bench_mono.py: mono culls harder
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
@@ -159,6 +193,7 @@ POSE_TOL = 1e-4  # kernel vs plain: f32 sums in another order
 GATE_REL = 1e-4  # an inlier may flip only this close (relative) to its gate
 ESSENTIAL_TOL = 1e-4  # essential-graph Sim3 poses, card vs CPU
 ESSENTIAL_SEED = 5  # the start poses of the essential-graph check
+PERM_ORDERS = 12  # shuffled edge orders of the plain f32 version per batched problem
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
@@ -426,6 +461,28 @@ def phase_kernel(dev) -> dict:
             r["plain_ms"] = _time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1))
         res[B] = r
         log(f"[timing] M=2048 B={B} (CUDA events, median of 50): " + json.dumps(r))
+    # the monocular path's problem: every edge mono (ur = -1), M = 2048
+    mono = batch_obs([make_problem(2048, seed=7, stereo=0.0)], dev)
+    pose0 = eye[None].contiguous()
+    obs1 = pose_opt.PoseObs(*[x[0] for x in mono])
+
+    def kern_mono():
+        return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, mono)
+
+    pk, ik, nk = kern_mono()
+    pr, ir, _ = pose_opt.pose_optimization_ref(CAM, eye, obs1)
+    err = (pk[0] - pr).abs().max().item()
+    mono_flips = _check_inliers(CAM, pk[0], ik[0], nk[0], pr, ir, obs1)
+    if not err <= POSE_TOL or mono_flips:
+        raise AssertionError(f"all-mono problem: kernel != plain, pose err {err:.3g}, "
+                             f"{mono_flips} inlier flips")
+    r = dict(max_abs_err=err, flips=mono_flips, inliers=int(nk[0]), ms=_time_ms(kern_mono),
+             graph_ms=_time_kernel_ms(kern_mono),
+             plain_ms=_time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1)))
+    r["bound_ms"], r["bound_by"], r["sm_bound_ms"], r["flops"] = _bound_ms(pose0, mono)
+    res["mono"] = r
+    worst = max(worst, err)
+    log("[timing] M=2048 B=1, every edge mono (CUDA events, median of 50): " + json.dumps(r))
     log(f"[kernel] max |pose err| {worst:.3g}, inlier flips at the gate: {flips}")
     return dict(max_abs_err=worst, flips=flips, timing=res)
 
@@ -467,7 +524,8 @@ def bench_sequence():
     return poses, frames
 
 
-def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=None):
+def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=None,
+                  mono: bool = False):
     from orbslam_mapsave_tpu_torch import config as cfg_mod
     from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
@@ -477,9 +535,10 @@ def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=Non
         bf=520.0 * 0.08, th_depth=50.0, fps=30)
     cfg.orb = cfg_mod.ORBConfig(n_features=2000, n_levels=4, scale_factor=1.5)
     cfg.max_keypoints = 2048
-    cfg.max_keyframes = 64
+    cfg.max_keyframes = MONO_MAX_KEYFRAMES if mono else 64
     cfg.max_points = 32768
-    return system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=vocabulary,
+    sensor = system_mod.Sensor.MONOCULAR if mono else system_mod.Sensor.RGBD
+    return system_mod.SLAMSystem(cfg, sensor, vocabulary=vocabulary,
                                  enable_mapping=enable_mapping, device=dev,
                                  reuse_map_path=reuse_map_path)
 
@@ -950,6 +1009,112 @@ def phase_loop_replay(lc, cap: dict) -> dict:
     return diff
 
 
+def phase_mono(dev, seq, voc) -> dict:
+    """tools/bench_mono.py's workload on the card: SLAMSystem(cfg,
+    MONOCULAR) over the u8 images of the bench sequence with the loop
+    phase's vocabulary and loop closing on (free-scale Sim3). Untimed over
+    WARMUP_FRAMES frames (the bootstrap, a few keyframes and mapping
+    passes), reset(), then one timed 240-frame pass, one device sync per
+    frame. The bootstrap's initializer and GBA and the loop stages are
+    wrapped (synced) inside the timed pass; their ms are printed apart."""
+    from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
+    from orbslam_mapsave_tpu_torch.ops import initializer
+    from orbslam_mapsave_tpu_torch.optim import global_ba, pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
+
+    poses, frames = seq
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    slam = _bench_system(dev, True, vocabulary=voc, mono=True)
+    lc = slam.loop_closer
+    if lc.fix_scale:
+        raise AssertionError("the monocular loop closer must leave the Sim3 scale free")
+    for i in range(WARMUP_FRAMES):
+        slam.track_monocular(frames[i][0], stamps[i])
+    slam.flush_gba()
+    warmup_keyframes = slam.n_keyframes
+    slam.reset()
+    torch.cuda.synchronize()
+
+    calls, timed = 0, []
+    dispatch = pose_opt.pose_optimization
+
+    def counted(*args):
+        nonlocal calls
+        calls += 1
+        return dispatch(*args)
+
+    stages = [(initializer, "initialize_two_view", "bootstrap initializer"),
+              (global_ba, "full_bundle_adjustment", "bootstrap GBA"),
+              (lc, "_sim3_chain", "sim3 lane"), (lc, "_correct", "correct"),
+              (lc, "_essential", "essential"), (global_ba, "gba_init", "gba_init"),
+              (global_ba, "gba_iterate", "gba_iter"), (gba_mod, "_apply_device", "gba_apply")]
+    patches = [(obj, name, _synced(getattr(obj, name), label, timed))
+               for obj, name, label in stages]
+    frame_ms = np.empty(N_FRAMES)
+    with _patched(patches + [(pose_opt, "pose_optimization", counted)]):
+        pose_opt_cuda.reset_launches()
+        t_start = time.perf_counter()
+        for i in range(N_FRAMES):
+            t1 = time.perf_counter()
+            pose = slam.track_monocular(frames[i][0], stamps[i])
+            torch.cuda.synchronize()
+            frame_ms[i] = 1e3 * (time.perf_counter() - t1)
+            if pose.shape != (4, 4) or not np.isfinite(pose).all():
+                raise AssertionError(f"frame {i}: bad pose {pose}")
+        slam.flush_gba()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    launches = pose_opt_cuda.launches
+
+    traj = slam.tracker.trajectory
+    lost = [i for i, (_, _, l) in enumerate(traj) if l]
+    boot = next((i for i, (_, _, l) in enumerate(traj) if not l), None)
+    ts, est = slam.keyframe_trajectory()
+    kf_ate = traj_io.ate_rmse(stamps, poses, ts, np.linalg.inv(est), with_scale=True)
+    events = _loop_events(slam)
+    map_dropped, _ = slam.mapper.ba_lane_stats()
+    loop_frame = (int(np.argmax(frame_ms)), float(frame_ms.max()))
+    res = dict(frames=N_FRAMES, fps=N_FRAMES / wall,
+               p50_ms=float(np.percentile(frame_ms, 50)),
+               p99_ms=float(np.percentile(frame_ms, 99)), max_ms=float(frame_ms.max()),
+               slowest_frame=loop_frame[0], bootstrap_frame=boot, lost_frames=lost,
+               keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_sim3_m=kf_ate,
+               loops=len(events), events=events, inliers=[e.n_inliers for e in lc.events],
+               gba_applied=lc.gba_applied, gba_aborted=lc.gba_aborted,
+               ba_lanes_dropped=slam.tracker.ba_lanes_dropped + map_dropped,
+               pose_optimizations=calls, launches=launches,
+               warmup_keyframes=warmup_keyframes,
+               jax_cpu=dict(bootstrap_frame=JAX_CPU_MONO_BOOTSTRAP_FRAME,
+                            lost_frames=JAX_CPU_MONO_LOST_FRAMES,
+                            keyframes=JAX_CPU_MONO_KEYFRAMES,
+                            kf_ate_sim3_m=JAX_CPU_MONO_KF_ATE_SIM3_M,
+                            events=JAX_CPU_MONO_EVENTS),
+               stages_ms=_stage_summary(timed))
+    log("[mono] " + json.dumps({k: v for k, v in res.items() if k != "stages_ms"}))
+    log("[mono] stage ms (host clock, synced; the bootstrap's and the loop's): "
+        + json.dumps(res["stages_ms"]))
+    if boot != JAX_CPU_MONO_BOOTSTRAP_FRAME:
+        raise AssertionError(f"bootstrapped on frame {boot}, JAX CPU "
+                             f"{JAX_CPU_MONO_BOOTSTRAP_FRAME}")
+    if lost != JAX_CPU_MONO_LOST_FRAMES:
+        raise AssertionError(f"lost frames {lost}, JAX CPU {JAX_CPU_MONO_LOST_FRAMES}")
+    if abs(res["keyframes"] - JAX_CPU_MONO_KEYFRAMES) > 0.2 * JAX_CPU_MONO_KEYFRAMES:
+        raise AssertionError(f"{res['keyframes']} keyframes vs JAX CPU {JAX_CPU_MONO_KEYFRAMES}")
+    if not kf_ate <= JAX_CPU_MONO_KF_ATE_SIM3_M + 0.01:
+        raise AssertionError(f"Sim3 kf ATE {kf_ate:.4f} m vs JAX CPU "
+                             f"{JAX_CPU_MONO_KF_ATE_SIM3_M:.4f} m")
+    if res["loops"] != len(JAX_CPU_MONO_EVENTS):
+        raise AssertionError(f"{res['loops']} loops vs JAX CPU {len(JAX_CPU_MONO_EVENTS)}")
+    if lc.gba_applied != res["loops"] or lc.gba_aborted:
+        raise AssertionError(f"GBA jobs: {lc.gba_applied} applied, {lc.gba_aborted} aborted "
+                             f"for {res['loops']} loops")
+    if res["ba_lanes_dropped"] != 0:
+        raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
+    if launches != calls or calls < 2 * (N_FRAMES - len(lost) - 1):
+        raise AssertionError(f"{launches} pose-LM launches for {calls} pose optimizations")
+    return res
+
+
 def _kidnap_sequence(seq):
     """(frames, ground-truth index per frame or None for a blank): frames
     0..KIDNAP_AT-1, KIDNAP_BLANKS blank frames, then KIDNAP_RESUME.."""
@@ -1059,6 +1224,20 @@ def phase_kidnap(dev, seq, voc) -> dict:
     if not batched:
         raise AssertionError("relocalization made no pose-LM launch with B > 1")
     _check_quality(res, JAX_CPU_KIDNAP_KEYFRAMES, JAX_CPU_KIDNAP_KF_ATE_M)
+    # one-sided: the port's own vocabulary (trained on its frames) differs
+    # from the JAX run's where ORB rounding ties change a training
+    # descriptor, and this run's loop decisions follow the vocabulary;
+    # handed the JAX vocabulary, the port closes no loop here either
+    # (tools/jax_cpu_bench_reference.py --kidnap --port --jax-vocabulary)
+    lc = slam.loop_closer
+    res["events"] = _loop_events(slam)
+    log(f"[kidnap] loops {res['loops']} {res['events']}, JAX CPU {JAX_CPU_KIDNAP_LOOPS}; "
+        f"GBA jobs applied {lc.gba_applied}, aborted {lc.gba_aborted}")
+    if res["loops"] < JAX_CPU_KIDNAP_LOOPS:
+        raise AssertionError(f"{res['loops']} loops vs JAX CPU {JAX_CPU_KIDNAP_LOOPS}")
+    if lc.gba_applied != res["loops"] or lc.gba_aborted:
+        raise AssertionError(f"GBA jobs: {lc.gba_applied} applied, {lc.gba_aborted} aborted "
+                             f"for {res['loops']} loops")
     return res
 
 
@@ -1092,16 +1271,38 @@ def _check_batched_launch(cap: tuple) -> dict:
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"batched launch ({key}) not bit-repeatable")
-        errs, flips = [], []
+        errs, flips, vs64 = [], [], []
         for c in range(B):
             obs1 = pose_opt.PoseObs(*[x[c] for x in ob])
             pr, ir, _ = pose_opt.pose_optimization_ref(cam, p0[c], obs1)
             errs.append((a[0][c] - pr).abs().max().item())
             flips.append(_check_inliers(cam, a[0][c], a[1][c], a[2][c], pr, ir, obs1))
+            if key == "real":
+                # the plain version in float64 on the same problem: which of
+                # the kernel and plain f32 is off when they disagree; and
+                # plain f32 over PERM_ORDERS shuffled edge orders: how far
+                # the summation order alone moves f32 on this problem
+                p64, _, _ = pose_opt.pose_optimization_ref(
+                    cam, p0[c].double(),
+                    pose_opt.PoseObs(*[x.double() if x.is_floating_point() else x
+                                       for x in obs1]))
+                gen = torch.Generator(device=obs1.valid.device).manual_seed(c)
+                spread = []
+                for _ in range(PERM_ORDERS):
+                    perm = torch.randperm(M, generator=gen, device=obs1.valid.device)
+                    pp, _, _ = pose_opt.pose_optimization_ref(
+                        cam, p0[c], pose_opt.PoseObs(*[x[perm] for x in obs1]))
+                    spread.append((pp.double() - p64).abs().max().item())
+                vs64.append(dict(kernel=(a[0][c].double() - p64).abs().max().item(),
+                                 plain_f32=(pr.double() - p64).abs().max().item(),
+                                 plain_f32_orders_max=max(spread),
+                                 plain_f32_orders_median=float(np.median(spread))))
         bound_ms, bound_by, sm_ms, flops = _bound_ms(p0, ob, cam)
         res[key] = dict(B=B, M=M, inliers=a[2].tolist(), max_abs_err=errs, flips=flips,
                         ms=_time_ms(kern), graph_ms=_time_kernel_ms(kern), bound_ms=bound_ms,
                         bound_by=bound_by, sm_bound_ms=sm_ms, flops=flops)
+        if vs64:
+            res[key]["err_vs_f64"] = vs64
         log(f"[reuse] batched pose-LM launch ({key}) vs plain: " + json.dumps(res[key]))
         if not max(errs) <= POSE_TOL:
             raise AssertionError(f"batched kernel ({key}) != plain: pose err {max(errs):.3g}")
@@ -1238,7 +1439,8 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
     changing the loaded map. `apps/run_slam.py` (default device: the card):
     `--save-map` over a TUM copy of the bench trajectory's first CLI_FRAMES
     frames (PNG files, the bench room), then `--reuse-map` on it: starts
-    LOST in localization-only mode, relocalizes, the map unchanged. The
+    LOST in localization-only mode, relocalizes, the map unchanged; then
+    `--sensor mono` on the same images: bootstraps and tracks. The
     dataset reader needs Pillow; a machine without it runs the first part
     only and says so."""
     import importlib.util
@@ -1295,7 +1497,10 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
         run_slam.main(base + ["--out", str(tmp / "b.txt"), "--kf-out", str(tmp / "bk.txt"),
                               "--reuse-map", str(cli_map)])
         t2 = time.perf_counter()
-    (first, _, _), (reuse, loc_only, state0) = systems
+        run_slam.main(base + ["--sensor", "mono", "--out", str(tmp / "m.txt"),
+                              "--kf-out", str(tmp / "mk.txt")])
+        t3 = time.perf_counter()
+    (first, _, _), (reuse, loc_only, state0), (mono, _, _) = systems
     lost = [lost for _, _, lost in reuse.tracker.trajectory]
     res["run_slam"] = dict(device=str(first.device), slam_s=t1 - t0, reuse_s=t2 - t1,
                            keyframes=first.n_keyframes, points=first.n_points,
@@ -1303,12 +1508,20 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
                            localized_frames=lost.count(False), frames=len(lost),
                            saved=mapio.map_summary(mapio.load_map(cli_map)),
                            after_reuse=mapio.map_summary(reuse.map))
+    mono_lost = [lost for _, _, lost in mono.tracker.trajectory]
+    res["run_slam_mono"] = dict(device=str(mono.device), sensor=mono.sensor.name,
+                                seconds=t3 - t2, keyframes=mono.n_keyframes,
+                                points=mono.n_points, tracked_frames=mono_lost.count(False),
+                                frames=len(mono_lost))
     log("[cli] " + json.dumps(res))
     r = res["run_slam"]
     if first.device.type != "cuda" or not loc_only or state0 != tracking.LOST:
         raise AssertionError("run_slam must run on the card and reuse must start LOST")
     if r["localized_frames"] < 1 or r["after_reuse"] != r["saved"]:
         raise AssertionError(f"run_slam --reuse-map: {r}")
+    m = res["run_slam_mono"]
+    if mono.device.type != "cuda" or m["keyframes"] < 2 or m["tracked_frames"] < CLI_FRAMES // 2:
+        raise AssertionError(f"run_slam --sensor mono: {m}")
     return res
 
 
@@ -1427,6 +1640,7 @@ def main() -> int:
             map_path = Path(tmp) / "map.npz"
             lres, lc, lcap = phase_loop(dev, seq, map_path)
             phase_loop_replay(lc, lcap)
+            mono = phase_mono(dev, seq, lc.voc)
             kid = phase_kidnap(dev, seq, lc.voc)
             reu = phase_reuse(dev, seq, lc.voc, map_path, lres["save_ms"])
             phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
@@ -1445,6 +1659,10 @@ def main() -> int:
         "fps", "p50_ms", "p99_ms", "max_ms", "loops", "events", "keyframes", "points",
         "kf_ate_m", "lost", "launches", "pose_optimizations", "gba_applied",
         "ba_lanes_dropped", "n_words")}))
+    log("[chip_smoke] mono slice: " + json.dumps({k: mono[k] for k in (
+        "fps", "p50_ms", "p99_ms", "max_ms", "bootstrap_frame", "loops", "events",
+        "keyframes", "points", "kf_ate_sim3_m", "launches", "pose_optimizations",
+        "gba_applied", "ba_lanes_dropped")}))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
@@ -1462,8 +1680,8 @@ def main() -> int:
         "edge_pass_share": t1["edge_pass_share"],
         "sm_bound_ms": t1["sm_bound_ms"],
         "launches_batched": kid["launches_batched"] + reu["launches_batched"],
-        "launches_by_path": {"loop": lres["launches"], "kidnap": kid["launches"],
-                             "reuse": reu["launches"]},
+        "launches_by_path": {"loop": lres["launches"], "mono": mono["launches"],
+                             "kidnap": kid["launches"], "reuse": reu["launches"]},
         "batched_B": reu["batched_launch"]["B"],
         "batched_ms": reu["batched_launch"]["ms"],
         "batched_graph_ms": reu["batched_launch"]["graph_ms"],
@@ -1472,6 +1690,12 @@ def main() -> int:
         "batched5_ms": reu["batched_launch"]["B5"]["ms"],
         "batched5_graph_ms": reu["batched_launch"]["B5"]["graph_ms"],
         "batched5_bound_ms": reu["batched_launch"]["B5"]["bound_ms"],
+        "batched_err_vs_f64": reu["batched_launch"]["err_vs_f64"],
+        "mono_problem_ms": kres["timing"]["mono"]["ms"],
+        "mono_problem_graph_ms": kres["timing"]["mono"]["graph_ms"],
+        "mono_problem_plain_ms": kres["timing"]["mono"]["plain_ms"],
+        "mono_problem_bound_ms": kres["timing"]["mono"]["bound_ms"],
+        "mono_problem_max_abs_err": kres["timing"]["mono"]["max_abs_err"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Dataset-driven SLAM main: the reference's example executables as one CLI.
 
-Port of `orbslam_mapsave_tpu/apps/run_slam.py` for RGB-D input
-(`Examples/RGBD_LoadImages.cpp`, `RGBDFast_LoadImages.cpp`; a growing image
-directory with `--follow` stands in for a live sensor):
+Port of `orbslam_mapsave_tpu/apps/run_slam.py` for RGB-D and monocular
+input (`Examples/RGBD_LoadImages.cpp`, `RGBDFast_LoadImages.cpp`,
+`Monocular_LoadImages.cpp`; a growing image directory with `--follow`
+stands in for a live sensor):
 
     python -m orbslam_mapsave_tpu_torch.apps.run_slam --dataset /path/to/tum \\
         --sensor rgbd --camera-yaml ORB_RGBD640x480.yaml --vocabulary voc.bin \\
@@ -12,8 +13,9 @@ directory with `--follow` stands in for a live sensor):
 Honors the master Setting.yaml cascade (`Examples/Setting.yaml`: vocabulary
 path, camera settings path, reuse-map flag and path). Runs on the CUDA card
 unless `--device` names another (`--device cpu` runs the plain PyTorch
-path). `--sensor mono` / `stereo` raise NotImplementedError (later slices);
-the viewer options wait for the `viz/` slice and exit with an error.
+path). `--sensor mono` reads the TUM rgb.txt images alone; `--sensor stereo`
+raises NotImplementedError (a later slice); the viewer options wait for the
+`viz/` slice and exit with an error.
 """
 
 from __future__ import annotations
@@ -94,6 +96,11 @@ def main(argv=None):
         print(f"  frame {i}: {state} kfs={slam.n_keyframes} pts={slam.n_points} {extra}",
               file=sys.stderr)
 
+    def track(gray, depth, t):
+        if sensor == system_mod.Sensor.MONOCULAR:
+            return slam.track_monocular(gray, t)
+        return slam.track_rgbd(gray, depth, t)
+
     t_track = []
     if args.follow:
         src = dataset_mod.FollowSource(
@@ -103,7 +110,7 @@ def main(argv=None):
               f"{args.follow_timeout}s ...")
         for i, (t, gray, depth) in enumerate(src.frames()):
             t0 = time.perf_counter()
-            slam.track_rgbd(gray, depth, t)
+            track(gray, depth, t)
             t_track.append(time.perf_counter() - t0)
             if i % 30 == 0:
                 log(i, f"dropped={src.n_dropped}")
@@ -118,7 +125,7 @@ def main(argv=None):
         for i in range(n):
             t, gray, depth = ds[i]
             t0 = time.perf_counter()
-            slam.track_rgbd(gray, depth, t)
+            track(gray, depth, t)
             t_track.append(time.perf_counter() - t0)
             if i % 30 == 0:
                 log(i, f"({1e3 * t_track[-1]:.0f} ms)")

@@ -1,8 +1,9 @@
 """Projection- and descriptor-guided matching over whole frames.
 
-Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset RGB-D tracking,
-local mapping and loop closing use): each search builds a dense (candidates x features) mask — window
-radius, octave range, rotation bins — over the full Hamming matrix, and
+Port of `orbslam_mapsave_tpu/ops/matching.py` (the subset that tracking,
+the monocular bootstrap, local mapping and loop closing use): each search
+builds a dense (candidates x features) mask — window radius, octave range,
+rotation bins — over the full Hamming matrix, and
 conflicts (several candidates claiming one feature) go to the smallest
 distance, then the lowest candidate row.
 """
@@ -192,6 +193,30 @@ def search_by_descriptor(desc_bits_1: torch.Tensor, valid_1: torch.Tensor,
     good = good & (owner == torch.arange(desc_bits_1.shape[-2], device=owner.device))
     minus1 = torch.full_like(idx, -1)
     return torch.where(good, idx, minus1), torch.sum(good.to(torch.int32), -1)
+
+
+def search_for_initialization(
+        kp_xy_1: torch.Tensor, kp_angle_1: torch.Tensor, desc_bits_1: torch.Tensor,
+        valid_1: torch.Tensor,
+        kp_xy_2: torch.Tensor, kp_angle_2: torch.Tensor, desc_bits_2: torch.Tensor,
+        valid_2: torch.Tensor,
+        window: float = 100.0, nn_ratio: float = 0.9, check_rotation: bool = True):
+    """`ORBmatcher::SearchForInitialization` (`src/ORBmatcher.cc:408-523`):
+    frame-1 features to frame-2 features within a window, ratio test,
+    rotation consistency, one-to-one on frame 2. The caller masks the
+    features to octave 0 through valid_*. Returns (matches12 (N1,), n)."""
+    d2 = torch.sum((kp_xy_1[:, None, :] - kp_xy_2[None, :, :]) ** 2, -1)
+    mask = (d2 <= window * window) & valid_1[:, None] & valid_2[None, :]
+    dmat = hamming.hamming_matrix_bits(desc_bits_1, desc_bits_2)
+    idx, best, second = hamming.masked_best2(dmat, extra_mask=mask)
+    good = valid_1 & (best <= hamming.TH_LOW) & (
+        best.to(torch.float32) < nn_ratio * second.to(torch.float32))
+    safe = torch.clamp(idx, min=0).long()
+    if check_rotation:
+        good = good & hamming.rotation_consistency_mask(kp_angle_1, kp_angle_2[safe], good)
+    winner_row = _resolve_conflicts(idx, best, good, kp_xy_2.shape[0])
+    good = good & (winner_row[safe] == torch.arange(kp_xy_1.shape[0], device=idx.device))
+    return torch.where(good, idx, torch.full_like(idx, -1)), torch.sum(good.to(torch.int32))
 
 
 

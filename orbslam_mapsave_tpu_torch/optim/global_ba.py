@@ -10,11 +10,11 @@ W^T) is a contraction against the (P,O,K) one-hot of the observing camera
 bit for bit); S is assembled in 8 point chunks and solved by Cholesky. LM
 damping, gauge fixing on keyframe slot 0 and the small-gain stop match the
 JAX version. The incremental form (`gba_init` + one `gba_iterate` per LM
-iteration) is what the loop closer's global-BA job pumps.
+iteration) is what the loop closer's global-BA job pumps; the one-shot
+form (`full_bundle_adjustment`) is the monocular bootstrap's.
 
-Not ported yet: the PCG solvers (`solver="pcg"`, past K = 384; the scale
-slice) and `full_bundle_adjustment` (only the monocular bootstrap calls
-it); the planar tables are TPU-only.
+Not ported yet: the PCG solvers (`solver="pcg"` and `"pcg_dual"`, past
+K = 384; the scale slice); the planar tables are TPU-only.
 """
 
 from __future__ import annotations
@@ -233,9 +233,34 @@ def _solve_dense(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torch
     return dx_cam, _backsub_points(tb, W_po, Hpp_inv, gp, pt_has, dx_cam)
 
 
-def full_bundle_adjustment(*args, **kwargs):
-    """The one-shot full-map BA: only the monocular bootstrap calls it."""
-    raise _not_yet("full_bundle_adjustment (the monocular bootstrap)")
+def full_bundle_adjustment(cam: projection.Camera, state: ms.MapState,
+                           inv_level_sigma2: torch.Tensor, n_iters: int = 10,
+                           robust: bool = False, solver: str = "dense"):
+    """Full-map BA over every valid keyframe and point, n_iters damped LM
+    iterations in one call (the monocular bootstrap runs 20 robust ones,
+    `src/Tracking.cc:931`). Unlike `gba_iterate` there is no small-gain
+    stop, and the poses come back orthonormalized, as in the JAX version.
+    Returns (kf_pose (K,4,4), pt_pos (P,3), final cost)."""
+    if solver != "dense":
+        raise _not_yet(f"the {solver!r} global-BA solver")
+    inv_level_sigma2 = torch.as_tensor(inv_level_sigma2, device=state.device)
+    tb = build_tables(state, inv_level_sigma2)
+    poses, pts = state.kf_pose, state.pt_pos
+    K = poses.shape[0]
+    oh = _onehot_po(tb, K)
+    cur = _accept_cost(cam, poses, pts, tb, robust)
+    lam = torch.tensor(1e-4, dtype=pts.dtype, device=state.device)
+    for _ in range(n_iters):
+        dxc, dxp = _solve_dense(cam, poses, pts, tb, robust, lam, oh)
+        new_poses = se3.se3_exp(dxc) @ poses
+        new_pts = pts + dxp
+        new = _accept_cost(cam, new_poses, new_pts, tb, robust)
+        accept = new < cur
+        poses = torch.where(accept, new_poses, poses)
+        pts = torch.where(accept, new_pts, pts)
+        cur = torch.where(accept, new, cur)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
+    return se3.orthonormalize(poses), pts, cur
 
 
 def gba_init(cam: projection.Camera, state: ms.MapState, inv_level_sigma2: torch.Tensor,

@@ -1,5 +1,5 @@
 """The per-frame tracking step: mode switch, OK-mode pipeline, keyframe
-decision and RGB-D keyframe creation.
+decision and keyframe creation (RGB-D, or monocular with `cfg.is_mono`).
 
 Port of `orbslam_mapsave_tpu/pipeline/fused_step.py`, with the predicated
 local-mapping pass on the frames that create a keyframe. The JAX version
@@ -76,6 +76,7 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
     `mapper`: a `LocalMapper` whose pass runs inside the step on every frame
     that creates a keyframe, or None for tracking only."""
     k = trk.make_tracking_kernels(cam, builder, n_levels, scale_factor)
+    is_mono = cfg.is_mono
 
     def _empty_matched(frame):
         return torch.full((frame.kp_xy.shape[0],), -1, dtype=torch.int32,
@@ -93,18 +94,23 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
     def _need_new_keyframe(state, frame, matched, n_inl, ref_kf, ctrl) -> bool:
         """`Tracking::NeedNewKeyFrame` — this fork's map-coverage formula
         (`src/Tracking.cc:1224-1321`); see the JAX version for the
-        reasoning behind each gate. Evaluated in float32 as there."""
+        reasoning behind each gate. Evaluated in float32 as there. Mono has
+        no close points (ratio 1, `:1270`), a 0.9 reference ratio and no
+        c1c (`:1291`)."""
         f32 = torch.float32
-        close = frame.valid & (frame.kp_depth > 0) & (frame.kp_depth < cfg.th_depth)
-        safe = torch.clamp(matched, min=0).long()
-        ok_pt = (matched >= 0) & state.pt_valid[safe]
-        has_obs = (state.pt_obs_kf[safe] >= 0).any(-1)
-        n_map = torch.sum((close & ok_pt & has_obs).to(torch.int32))
-        n_total = torch.sum(close.to(torch.int32))
-        ratio_map = n_map.to(f32) / torch.clamp(n_total.to(f32), min=1.0)
+        if is_mono:
+            ratio_map = torch.tensor(1.0, dtype=f32)
+        else:
+            close = frame.valid & (frame.kp_depth > 0) & (frame.kp_depth < cfg.th_depth)
+            safe = torch.clamp(matched, min=0).long()
+            ok_pt = (matched >= 0) & state.pt_valid[safe]
+            has_obs = (state.pt_obs_kf[safe] >= 0).any(-1)
+            n_map = torch.sum((close & ok_pt & has_obs).to(torch.int32))
+            n_total = torch.sum(close.to(torch.int32))
+            ratio_map = (n_map.to(f32) / torch.clamp(n_total.to(f32), min=1.0)).cpu()
         th_map_ratio = 0.20 if n_inl > 300 else 0.35
         n_kfs = int(torch.sum(state.kf_valid.to(torch.int32)))
-        th_ref = 0.4 if n_kfs < 2 else 0.75
+        th_ref = 0.4 if n_kfs < 2 else (0.9 if is_mono else 0.75)
         ref_pts = state.kf_kp_point[ref_kf]
         ref_has = (ref_pts >= 0) & state.kf_kp_valid[ref_kf]
         n_obs_ref = torch.sum((state.pt_obs_kf[torch.clamp(ref_pts, min=0).long()] >= 0)
@@ -117,8 +123,7 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
         c1b = ctrl.frame_id >= ctrl.last_kf_frame_id + cfg.min_frames
         rm = torch.tensor(ref_matches, dtype=f32)
         ninl = torch.tensor(n_inl, dtype=f32)
-        ratio_map = ratio_map.cpu()
-        c1c = bool((ninl < rm * 0.25) | (ratio_map < 0.3))
+        c1c = not is_mono and bool((ninl < rm * 0.25) | (ratio_map < 0.3))
         c2 = bool((ninl < rm * th_ref) | (ratio_map < th_map_ratio)) and n_inl > 15
         cap_ok = int(state.n_kf) < state.kf_capacity - 1
         return (c1a or c1b or c1c) and c2 and cap_ok
@@ -175,8 +180,12 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
         kf_slot, m3, state3 = -1, m2, state2
         if ok2 and ctrl.allow_kf and _need_new_keyframe(state2, frame, m2, n_inl,
                                                         ref2, ctrl):
-            state3, kf_slot, m3 = k["create_keyframe_rgbd"](
-                state2, frame, pose2, m2, ctrl.frame_id, cfg.th_depth)
+            if is_mono:
+                state3, kf_slot = k["create_keyframe_mono"](
+                    state2, frame, pose2, m2, ctrl.frame_id)
+            else:
+                state3, kf_slot, m3 = k["create_keyframe_rgbd"](
+                    state2, frame, pose2, m2, ctrl.frame_id, cfg.th_depth)
 
         # ---- predicated LocalMapping pass ----
         do_kf = kf_slot >= 0
@@ -228,7 +237,9 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
             last_matched=_empty_matched(frame), has_velocity=False, mb_vo=False)
         return state, ctrl2, _outcome(state, ctrl.mode, ctrl.pose)
 
-    branches = (_init_rgbd, _track_ok, _lost)
+    # mono initializes on the host (Tracker._mono_initialize): a
+    # NOT_INITIALIZED frame passes through like a lost one (JAX :394)
+    branches = (_lost if is_mono else _init_rgbd, _track_ok, _lost)
 
     def step(state: ms.MapState, ctrl: ControlState, frame: frame_mod.FrameData):
         idx = min(max(ctrl.mode - MODE_NOT_INITIALIZED, 0), 2)

@@ -54,6 +54,22 @@ def test_kernel_matches_plain(dev, M, B):
         assert np.abs(pose_k[b].cpu().numpy() - probs[b]["T_true"]).max() < 5e-3
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_kernel_matches_plain_all_mono(dev, B):
+    """Every edge mono (ur = -1), as on a monocular frame: no stereo row in
+    any residual or system term."""
+    probs = [make_problem(2048, seed=7 + b, stereo=0.0) for b in range(B)]
+    assert all((p["ur"] < 0).all() for p in probs)
+    obs = batch_obs(probs, dev)
+    pose0 = _eye(dev, B)
+    pose_k, inl_k, n_k = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    for b in range(B):
+        p_ref, inl_ref, n_ref = _plain(obs, pose0, b)
+        assert (pose_k[b] - p_ref).abs().max().item() <= TOL_POSE
+        assert torch.equal(inl_k[b], inl_ref) and int(n_k[b]) == int(n_ref)
+        assert np.abs(pose_k[b].cpu().numpy() - probs[b]["T_true"]).max() < 5e-3
+
+
 def test_all_invalid_returns_input_pose(dev):
     p = make_problem(1024, seed=3)
     p["valid"][:] = False

@@ -143,8 +143,18 @@ def test_gba_job_apply_on_grown_map():
 
 
 def test_scale_and_mono_routes_wait():
-    _, _, ts, _ = _case(n_kf=6, n_pt=100)
+    """The scale slice's solvers still raise; the one-shot full BA of the
+    monocular bootstrap (dense route, 20 robust iterations) is ported and
+    gives the JAX package's result."""
+    cam, js, ts, _ = _case(n_kf=10, n_pt=300, noise=0.2, pose_noise=0.01, pt_noise=0.02)
     with pytest.raises(NotImplementedError):
         tgba.gba_init(TCAM, ts, torch.from_numpy(ISIG), solver="pcg")
     with pytest.raises(NotImplementedError):
-        tgba.full_bundle_adjustment(TCAM, ts, torch.from_numpy(ISIG))
+        tgba.full_bundle_adjustment(TCAM, ts, torch.from_numpy(ISIG), solver="pcg")
+    pj, xj, cj = jgba.full_bundle_adjustment(cam, js, jnp.asarray(ISIG), n_iters=20,
+                                             robust=True, solver="dense")
+    pt, xt, ct = tgba.full_bundle_adjustment(TCAM, ts, torch.from_numpy(ISIG), n_iters=20,
+                                             robust=True, solver="dense")
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=POSE_TOL)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=PT_TOL)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-3)

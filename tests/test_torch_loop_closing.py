@@ -14,7 +14,13 @@ chain fed the JAX run's RANSAC hypotheses (acceptance, S12 within 1e-4,
 matched points and loop points equal), the correction program (the
 window-bitmask quirk included: poses within 1e-4, points within 1e-3,
 integer tables equal), the essential graph, and a process / poll sequence
-over all keyframes that gives the same LoopEvents."""
+over all keyframes that gives the same LoopEvents.
+
+The monocular variant drifts in scale too (each keyframe's estimated world
+is a similarity of the true one, its scale growing 1.2% per keyframe) and
+has no depth: both packages' closers run with `fix_scale=False`, and the
+Sim3 chain, the correction and the essential graph must carry the same
+scale s != 1."""
 
 from functools import lru_cache
 
@@ -48,28 +54,38 @@ def _rot_y(a):
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 
-def _true_pose(k):
-    """Tcw of keyframe k: centre on the 0.5 m circle, looking outward."""
+def _true_pose(k, spiral=0.0):
+    """Tcw of keyframe k: centre on the 0.5 m circle (a spiral growing by
+    `spiral` m per keyframe), looking outward."""
     th = k * STEP
     f = np.array([np.sin(th), 0.0, np.cos(th)])
     R_wc = np.stack([np.array([np.cos(th), 0.0, -np.sin(th)]), [0.0, 1.0, 0.0], f], 1)
     T = np.eye(4)
     T[:3, :3] = R_wc.T
-    T[:3, 3] = -R_wc.T @ (0.5 * f)
+    T[:3, 3] = -R_wc.T @ ((0.5 + spiral * k) * f)
     return T
 
 
-def _drift(k):
-    """G_k: the estimated world is G_k applied to the true one."""
+SCALE_DRIFT = 0.012  # per keyframe, the monocular variant's log-scale drift
+SPIRAL = 0.02  # m per keyframe: the monocular revisit sees the place from 0.32 m
+# farther out (at the same centre the loop's scale would be unobservable)
+
+
+def _drift(k, scale_drift=0.0):
+    """G_k: the estimated world is G_k applied to the true one (a Sim3 when
+    the scale drifts)."""
     G = np.eye(4)
-    G[:3, :3] = _rot_y(np.deg2rad(0.35 * k))
+    G[:3, :3] = np.exp(scale_drift * k) * _rot_y(np.deg2rad(0.35 * k))
     G[:3, 3] = k * np.array([0.008, 0.003, -0.006])
     return G
 
 
-@lru_cache(maxsize=1)
-def _world():
-    """Every keyframe's features and every point slot, in creation order."""
+@lru_cache(maxsize=2)
+def _world(mono=False):
+    """Every keyframe's features and every point slot, in creation order.
+    Mono: the estimated Tcw of keyframe k is diag(s_k) T_k G_k^-1 (rigid:
+    camera coordinates scale with the world), on the spiral."""
+    scale_drift, spiral = (SCALE_DRIFT, SPIRAL) if mono else (0.0, 0.0)
     rng = np.random.default_rng(11)
     n_phys = 1200
     phi = rng.uniform(0, 2 * np.pi, n_phys)
@@ -79,9 +95,9 @@ def _world():
     slots = []  # (physical id, creating kf, position, max_dist, normal)
     kfs = []
     for k in range(N_KF):
-        T = _true_pose(k)
-        G = _drift(k)
-        T_est = T @ np.linalg.inv(G)
+        T = _true_pose(k, spiral)
+        G = _drift(k, scale_drift)
+        T_est = np.diag([np.exp(scale_drift * k)] * 3 + [1.0]) @ T @ np.linalg.inv(G)
         pc = X @ T[:3, :3].T + T[:3, 3]
         uv = F * pc[:, :2] / pc[:, 2:3] + [W / 2, H / 2]
         vis = np.nonzero((pc[:, 2] > 0.3) & (uv[:, 0] > 10) & (uv[:, 0] < W - 10)
@@ -111,9 +127,10 @@ def _world():
     return kfs, slots, D
 
 
-def map_numpy(n_kf=N_KF) -> dict:
-    """The map after keyframe n_kf - 1, as numpy arrays of a JAX MapState."""
-    kfs, slots, D = _world()
+def map_numpy(n_kf=N_KF, mono=False) -> dict:
+    """The map after keyframe n_kf - 1, as numpy arrays of a JAX MapState
+    (mono: with the scale drift, and no depth or right-u)."""
+    kfs, slots, D = _world(mono)
     h = {k: np.array(v) for k, v in jms.empty_map(K_CAP, P_CAP, N_FEAT)._asdict().items()}
     obs = {}
     for k in range(n_kf):
@@ -125,8 +142,8 @@ def map_numpy(n_kf=N_KF) -> dict:
         h["kf_parent"][k] = k - 1
         for i, (s, uv, z, desc) in enumerate(feats):
             h["kf_kp_xy"][k, i] = uv
-            h["kf_kp_ur"][k, i] = uv[0] - BF / z
-            h["kf_kp_depth"][k, i] = z
+            h["kf_kp_ur"][k, i] = -1.0 if mono else uv[0] - BF / z
+            h["kf_kp_depth"][k, i] = -1.0 if mono else z
             h["kf_kp_angle"][k, i] = 45.0 + (i % 5) * 0.3
             h["kf_kp_valid"][k, i] = True
             h["kf_desc"][k, i] = desc
@@ -160,20 +177,21 @@ def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-@lru_cache(maxsize=1)
-def _closers():
+@lru_cache(maxsize=2)
+def _closers(fix_scale=True):
     """One JAX and one port LoopCloser over the same trained vocabulary
-    (JAX programs compile once per module). The JAX closer starts no global
-    BA; the port's starts its job at a loop event, and the tests compare
-    before the job runs (tests/test_torch_global_ba.py holds the job)."""
+    (JAX programs compile once per module and scale mode). The JAX closer
+    starts no global BA; the port's starts its job at a loop event, and the
+    tests compare before the job runs (tests/test_torch_global_ba.py holds
+    the job)."""
     h = map_numpy()
     desc = h["kf_desc"][h["kf_kp_valid"]]
     jv, tv = jvoc.train(desc, k=8, L=3, seed=1), tvoc.train(desc, k=8, L=3, seed=1)
     kw = dict(scale_factors=SCALES, n_levels=4, scale_factor=1.5)
     jcl = jlc.LoopCloser(jproj.Camera.create(F, F, W / 2, H / 2, bf=BF, width=W, height=H),
-                         ISIG, jv, fix_scale=True, enable_gba=False, **kw)
+                         ISIG, jv, fix_scale=fix_scale, enable_gba=False, **kw)
     tcl = tlc.LoopCloser(tproj.Camera.create(F, F, W / 2, H / 2, bf=BF, width=W, height=H),
-                         ISIG, tv, **kw)
+                         ISIG, tv, fix_scale=fix_scale, **kw)
     return jcl, tcl
 
 
@@ -190,9 +208,9 @@ def _fresh(cl):
     return cl
 
 
-def _stores(h):
+def _stores(h, fix_scale=True):
     """Both closers' BoW stores filled with every keyframe of h."""
-    jcl, tcl = map(_fresh, _closers())
+    jcl, tcl = map(_fresh, _closers(fix_scale))
     js, ts = _jstate(h), interop.map_state_from_numpy(h)
     jcl._ensure_store(js)
     tcl._ensure_store(ts)
@@ -373,6 +391,27 @@ def test_process_poll_sequence():
                      {k: np.asarray(v) for k, v in js._asdict().items()})
 
 
+def test_process_poll_with_the_jax_vocabulary(tmp_path):
+    """The port handed the JAX package's vocabulary through a .bin file (as
+    the kidnap run is, where the two packages' own vocabularies differ):
+    the same LoopEvents as the JAX closer's."""
+    jcl, _ = map(_fresh, _closers())
+    jvoc.save_binary(tmp_path / "voc.bin", jcl.voc)
+    tcl = tlc.LoopCloser(tproj.Camera.create(F, F, W / 2, H / 2, bf=BF, width=W, height=H),
+                         ISIG, tvoc.load_binary(tmp_path / "voc.bin"), scale_factors=SCALES,
+                         n_levels=4, scale_factor=1.5)
+    for k in range(N_KF):
+        h = map_numpy(k + 1)
+        jcl.process(_jstate(h), k)
+        tcl.process(interop.map_state_from_numpy(h), k)
+    h = map_numpy()
+    js, ts = _jstate(h), interop.map_state_from_numpy(h)
+    for _ in range(2):
+        js, ts = jcl.poll_detect(js), tcl.poll_detect(ts)
+    ev = [[(e.query_kf, e.match_kf, e.n_inliers) for e in cl.events] for cl in (jcl, tcl)]
+    assert ev[0] == ev[1] and len(ev[0]) == 1
+
+
 def test_remap_keyframes():
     """A keyframe compaction moves the BoW rows and the detector's host
     bookkeeping to the new slots, and drops the pending stages."""
@@ -405,3 +444,55 @@ def test_refractory_drops_stale_stages(stage):
     out = tcl.poll_detect(ts)
     assert out is ts and tcl._pending_detect is None and tcl._pending_sim3 is None
     assert not tcl.events
+
+
+def test_free_scale_loop():
+    """The monocular variant (scale drift, no depth) through detection, the
+    Sim3 chain fed JAX's hypotheses, the correction and the essential graph
+    with `fix_scale=False` on both sides: the same results, and a recovered
+    loop scale that is not 1."""
+    h = map_numpy(mono=True)
+    jcl, tcl, js, ts = _stores(h, fix_scale=False)
+    assert not jcl.fix_scale and not tcl.fix_scale
+    qj, qt = jcl.compute_bow(js, QUERY), tcl.compute_bow(ts, QUERY)
+    oj = jax.device_get(jlc._detect_device(jcl.bow_store, js, *qj, jnp.asarray(QUERY)))
+    ot = tlc._detect_device(tcl.bow_store, ts, *qt, QUERY)
+    np.testing.assert_array_equal(_np(ot[0])[np.isfinite(oj[1])], oj[0][np.isfinite(oj[1])])
+    assert int(_np(ot[0])[0]) == MATCH
+    # the Sim3 chain
+    if jcl._sim3_device is None:
+        jcl._sim3_device = jcl._build_sim3_device()
+    cj = jax.device_get(jcl._sim3_device(js, jnp.asarray(QUERY, jnp.int32),
+                                         jnp.asarray(MATCH, jnp.int32),
+                                         jax.random.PRNGKey(QUERY)))
+    ct = {k: _np(v) for k, v in tcl._sim3_chain(
+        ts, QUERY, MATCH, hyp_idx=_jax_hypotheses(tcl, ts, QUERY, MATCH)).items()}
+    assert bool(ct["accept"]) and bool(cj["accept"])
+    np.testing.assert_allclose(ct["S12"], cj["S12"], atol=POSE_TOL)
+    assert int(ct["n2"]) == int(cj["n2"]) >= 20
+    np.testing.assert_array_equal(ct["matched_pt"], cj["matched_pt"])
+    s12 = np.cbrt(np.linalg.det(ct["S12"][:3, :3]))
+    # camera 2 (the match) is scaled by s_3, camera 1 by s_19, near enough:
+    # a tracked point keeps the scale of the keyframe that made it, up to 3
+    # keyframes earlier
+    np.testing.assert_allclose(s12, np.exp(SCALE_DRIFT * (QUERY - MATCH)), rtol=0.05)
+    assert abs(s12 - 1.0) > 0.1
+    # the correction and the essential graph carry that scale
+    if jcl._correct_device is None:
+        jcl._correct_device = jcl._build_correct_device()
+    args = (ct["S12"], ct["matched_pt"], ct["loop_pts"])
+    cor_j = jcl._correct_device(js, jnp.asarray(QUERY, jnp.int32),
+                                jnp.asarray(MATCH, jnp.int32), *map(jnp.asarray, args))
+    cor_t = tcl._correct(ts, QUERY, MATCH, *map(torch.from_numpy, args))
+    a, b = (interop.map_state_to_numpy(cor_t),
+            {k: np.asarray(v) for k, v in cor_j._asdict().items()})
+    _assert_same_map(a, b)
+    moved = np.abs(a["kf_pose"] - h["kf_pose"]).max((1, 2)) > 1e-6
+    assert moved[QUERY] and not moved[MATCH]
+    if jcl._essential_device is None:
+        jcl._essential_device = jcl._build_essential_device()
+    ess_j = jcl._essential_device(cor_j, jnp.asarray(QUERY, jnp.int32),
+                                  jnp.asarray(MATCH, jnp.int32))
+    ess_t = tcl._essential(cor_t, QUERY, MATCH)
+    _assert_same_map(interop.map_state_to_numpy(ess_t),
+                     {k: np.asarray(v) for k, v in ess_j._asdict().items()})

@@ -2,8 +2,9 @@
 where both are unimportable, import every module of
 orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU, without a
 vocabulary and with a small trained one and loop closing on, then save that
-map and relocalize one frame against it in reuse mode; and no source line
-of the port or of chip_smoke.py imports either."""
+map and relocalize one frame against it in reuse mode, and track a few
+monocular frames through the two-view bootstrap; and no source line of the
+port or of chip_smoke.py imports either."""
 
 import subprocess
 import sys
@@ -17,6 +18,8 @@ sys.modules["jax"] = None
 sys.modules["orbslam_mapsave_tpu"] = None
 import importlib, pkgutil
 import numpy as np
+import torch
+torch.set_num_threads(2)
 import orbslam_mapsave_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -51,6 +54,15 @@ slam = system.SLAMSystem(cfg, system.Sensor.RGBD, vocabulary=voc, reuse_map_path
                          device="cpu")
 slam.track_rgbd(gray.astype(np.uint8), depth, 0.0)
 assert slam.localization_only and slam.tracking_state == 2 and slam.n_keyframes == 1
+mono = system.SLAMSystem(cfg, system.Sensor.MONOCULAR, vocabulary=voc, device="cpu")
+for i in range(3):
+    T = np.eye(4)
+    T[0, 3] = 0.08 * i
+    g = synthetic.BoxRoom(seed=9).render(K, T, W, H)[0].astype(np.uint8)
+    mono.track_monocular(g, i / 30.0)
+lost = [l for _, _, l in mono.tracker.trajectory]
+assert lost[0] and not any(lost[1:]) and mono.n_keyframes >= 2 and mono.n_points > 100
+assert not mono.loop_closer.fix_scale
 assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names), slam.n_points)

@@ -156,6 +156,42 @@ def test_optimize_sim3(fix_scale):
     assert int(n_t) == int(n_j) > 150
 
 
+def test_free_scale_ransac_then_optimize():
+    """The monocular chain, 7 DoF: RANSAC fed JAX's draws, then OptimizeSim3
+    from its result, on clouds related by a Sim3 with s = e^0.1; both steps
+    as JAX, and the scale recovered."""
+    rng = np.random.default_rng(4)
+    pc1, pc2, uv1, uv2, valid, S12 = _matched_clouds(rng, fix_scale=False, outliers=0.2)
+    M = pc1.shape[0]
+    me = np.full(M, 9.210, np.float32)
+    key = jax.random.PRNGKey(23)
+    p = jnp.asarray(valid, jnp.float32) / max(valid.sum(), 1)
+    idx = jax.vmap(lambda k: jax.random.choice(k, M, (3,), replace=False, p=p))(
+        jax.random.split(key, 300))
+    Sj, inl_j, _, _ = jsim.ransac_sim3(
+        key, jnp.asarray(pc1), jnp.asarray(pc2), jnp.asarray(uv1), jnp.asarray(uv2), 300,
+        False, max_err1=jnp.asarray(me), max_err2=jnp.asarray(me),
+        valid=jnp.asarray(valid), fx=FX, fy=FX, cx=CX, cy=CY, min_inliers=20)
+    St, inl_t, _, ok_t = tsim.ransac_sim3(
+        _t(pc1), _t(pc2), _t(uv1), _t(uv2), 300, False, max_err1=_t(me), max_err2=_t(me),
+        valid=_t(valid), fx=FX, fy=FX, cx=CX, cy=CY, min_inliers=20, hyp_idx=_t(idx))
+    np.testing.assert_allclose(_np(St), np.asarray(Sj), atol=TOL)
+    np.testing.assert_array_equal(_np(inl_t), np.asarray(inl_j))
+    obs = dict(pc1=pc1, pc2=pc2, uv1=uv1, uv2=uv2, inv_sigma2_1=np.ones(M, np.float32),
+               inv_sigma2_2=np.ones(M, np.float32), valid=_np(inl_t))
+    cam_j = jproj.Camera.create(FX, FX, CX, CY, bf=40.0, width=640, height=480)
+    cam_t = tproj.Camera.create(FX, FX, CX, CY, bf=40.0, width=640, height=480)
+    Oj, oinl_j, on_j = jopt.optimize_sim3(
+        cam_j, Sj, jopt.Sim3Obs(**{k: jnp.asarray(v) for k, v in obs.items()}), False)
+    Ot, oinl_t, on_t = topt.optimize_sim3(
+        cam_t, St, topt.Sim3Obs(**{k: _t(v) for k, v in obs.items()}), False)
+    np.testing.assert_allclose(_np(Ot), np.asarray(Oj), atol=TOL)
+    np.testing.assert_array_equal(_np(oinl_t), np.asarray(oinl_j))
+    assert int(on_t) == int(on_j) >= 20
+    s = float(tse3.sim3_split(Ot)[0])
+    assert abs(s - np.exp(0.1)) < 5e-3 and abs(s - 1.0) > 0.09
+
+
 def _two_keyframes(rng, N=600):
     """Two keyframes' feature tables seeing one point cloud, descriptors
     with per-view bit noise."""

@@ -291,16 +291,13 @@ def test_device_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(sensor="STEREO")])
 def test_unported_options_raise(kw):
-    """Stereo and monocular input wait for their slices (a vocabulary, loop
+    """Stereo input waits for its slice (monocular input, a vocabulary, loop
     closing and map reuse are ported)."""
     cfg = tcfg.SystemConfig()
     kw = dict(kw)
     sensor = tsys.Sensor[kw.pop("sensor", "RGBD")]
     with pytest.raises(NotImplementedError):
         tsys.SLAMSystem(cfg, sensor, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        tsys.SLAMSystem(cfg, tsys.Sensor.MONOCULAR, enable_mapping=False,
-                        device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 run JAX).
 
     JAX_PLATFORMS=cpu python tools/jax_cpu_bench_reference.py \
-        [--no-mapping | --loop | --kidnap | --reuse]
+        [--no-mapping | --loop | --kidnap | --reuse | --mono]
 
 Runs bench.py's sequence and configuration (640x480, 2000 ORB features,
 circle_trajectory(240, radius=0.55, revs=1.30) in BoxRoom(2.0, seed=11),
@@ -27,6 +27,16 @@ frames tracked as lost, the frame on which relocalization succeeded after
 the blanks, keyframes, points and the keyframe ATE against the ground
 truth of the frames shown.
 
+`--kidnap --trace` also prints, per keyframe that ran a loop detection,
+its candidates with their BoW scores, each candidate group's consistency
+count and the candidates that passed, and per Sim3 chain read its
+acceptance and inliers. `--port` runs the kidnap sequence through the
+PyTorch port (orbslam_mapsave_tpu_torch) on the CPU instead, with the
+vocabulary the port trains from its own frames, or with `--jax-vocabulary`
+the JAX package's, handed over as a .bin file: the two vocabularies differ
+where ORB rounding ties change a training descriptor, and loop detection
+follows the vocabulary. The port takes ~50 min for the 293 frames.
+
 `--reuse` runs the headline configuration over the 240 frames, saves the
 map with its BoW rows (`save_map`), reloads it with
 `SLAMSystem(..., reuse_map_path=...)` (localization only, starting LOST)
@@ -34,7 +44,17 @@ and runs the 240 frames again: the first relocalized frame, the localized
 frames, the ATE of the localized frames' poses against the ground truth,
 and the loaded and final keyframe / point counts.
 
-Both read the tracker's outcomes every frame (`fetch_every = 1`).
+`--mono` runs tools/bench_mono.py's workload: the same 240 frames, the
+u8 image alone, through `SLAMSystem(cfg, Sensor.MONOCULAR)` with
+max_keyframes=96, bench.py's vocabulary and loop closing on (Sim3 with a
+free scale), one pass from a fresh system. It prints the bootstrap frame
+(the first frame not lost), the lost frames, keyframes, points, the
+Sim3-aligned keyframe ATE (`ate_rmse(..., with_scale=True)`: mono scale is
+free), the loop events, the global-BA jobs applied and aborted, and the BA
+lanes dropped (in the per-frame step and in the bootstrap pair's mapping
+passes).
+
+All of them read the tracker's outcomes every frame (`fetch_every = 1`).
 """
 
 from __future__ import annotations
@@ -62,18 +82,17 @@ N, W, H = 240, 640, 480
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 
 
-def _config():
-    cfg = cfg_mod.SystemConfig()
-    cfg.camera = cfg_mod.CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, width=W,
-                                      height=H, bf=520.0 * 0.08, th_depth=50.0, fps=30)
-    cfg.orb = cfg_mod.ORBConfig(n_features=2000, n_levels=4, scale_factor=1.5)
+def _config(mod=cfg_mod):
+    cfg = mod.SystemConfig()
+    cfg.camera = mod.CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, width=W,
+                                  height=H, bf=520.0 * 0.08, th_depth=50.0, fps=30)
+    cfg.orb = mod.ORBConfig(n_features=2000, n_levels=4, scale_factor=1.5)
     cfg.max_keypoints, cfg.max_keyframes, cfg.max_points = 2048, 64, 32768
     return cfg
 
 
-def _vocabulary(cfg, frames, stamps):
-    from orbslam_mapsave_tpu.vocab import vocabulary
-
+def _descriptors(cfg, frames, stamps) -> np.ndarray:
+    """bench.py's training descriptors: frames 0, 12, ..., 228."""
     trainer = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=None,
                                     enable_loop_closing=False)
     descs = []
@@ -81,14 +100,59 @@ def _vocabulary(cfg, frames, stamps):
         fr = trainer.builder.build(jnp.asarray(frames[i][0]), stamps[i],
                                    jnp.asarray(frames[i][1]))
         descs.append(np.asarray(fr.desc)[np.asarray(fr.valid)])
-    return vocabulary.train(np.concatenate(descs), k=10, L=4, seed=1)
+    return np.concatenate(descs)
 
 
-def _kf_ate(slam, gt_ts, gt_poses) -> float:
+def _vocabulary(cfg, frames, stamps):
+    from orbslam_mapsave_tpu.vocab import vocabulary
+
+    return vocabulary.train(_descriptors(cfg, frames, stamps), k=10, L=4, seed=1)
+
+
+def _kf_ate(slam, gt_ts, gt_poses, with_scale: bool = False) -> float:
     valid = np.asarray(slam.map.kf_valid)
     ts = np.asarray(slam.map.kf_timestamp, np.float64)[valid] + slam.tracker.ts_epoch
     est = np.asarray(slam.map.kf_pose)[valid]
-    return float(traj_io.ate_rmse(gt_ts, gt_poses, ts, np.linalg.inv(est)))
+    return float(traj_io.ate_rmse(gt_ts, gt_poses, ts, np.linalg.inv(est),
+                                  with_scale=with_scale))
+
+
+def _mono(cfg, voc, frames, poses, stamps) -> dict:
+    from orbslam_mapsave_tpu.pipeline import gba as gba_mod
+
+    cfg.max_keyframes = 96  # tools/bench_mono.py: mono culls harder
+    jobs = {"applied": 0, "aborted": 0}
+    apply, abort = gba_mod.GBAJob.apply, gba_mod.GBAJob.abort
+
+    def counted_apply(job, state):
+        jobs["applied"] += not job.aborted
+        return apply(job, state)
+
+    def counted_abort(job):
+        jobs["aborted"] += not job.aborted
+        return abort(job)
+
+    gba_mod.GBAJob.apply, gba_mod.GBAJob.abort = counted_apply, counted_abort
+    slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.MONOCULAR, vocabulary=voc)
+    slam.tracker.fetch_every = 1
+    for (gray, _), t in zip(frames, stamps):
+        slam.track_monocular(gray, t)
+        slam.tracker.flush()
+    slam.flush_gba()
+    traj = slam.tracker.trajectory
+    lost = [j for j, (_, _, l) in enumerate(traj) if l]
+    valid = np.asarray(slam.map.kf_valid)
+    fid = np.asarray(slam.map.kf_frame_id)
+    map_dropped, _ = slam.mapper.ba_lane_stats()
+    return dict(
+        bootstrap_frame=next((j for j, (_, _, l) in enumerate(traj) if not l), None),
+        lost_frames=lost, keyframes=slam.n_keyframes, points=slam.n_points,
+        kf_ate_sim3_m=_kf_ate(slam, stamps, poses, with_scale=True),
+        kf_frame_ids=fid[valid].tolist(), loops=len(slam.loop_closer.events),
+        events=[dict(query_frame=int(fid[e.query_kf]), match_frame=int(fid[e.match_kf]),
+                     inliers=e.n_inliers) for e in slam.loop_closer.events],
+        gba_applied=jobs["applied"], gba_aborted=jobs["aborted"],
+        ba_lanes_dropped=slam.tracker.ba_lanes_dropped + map_dropped)
 
 
 def _drive(slam, frames, stamps) -> list[int]:
@@ -104,25 +168,97 @@ def _drive(slam, frames, stamps) -> list[int]:
     return states
 
 
-def _kidnap(cfg, voc, frames, poses) -> dict:
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def _traced(lc, trace: list):
+    """Record the loop closer's detections and Sim3 reads into `trace`."""
+    detect, poll = lc._detect_host, lc._poll_sim3
+
+    def traced_detect(kf, fut):
+        out = detect(kf, fut)
+        ids, scores = _np(fut[0]), _np(fut[1])
+        live = np.isfinite(scores)
+        trace.append(dict(kf=int(kf), candidates=[(int(c), round(float(v), 5)) for c, v in
+                                                  zip(ids[live], scores[live])],
+                          consistency=[c for _, c in lc.consistent_groups],
+                          passed=[int(c) for c in out]))
+        return out
+
+    def traced_poll(state):
+        if lc._pending_sim3 is not None:
+            kf, cands, fut = lc._pending_sim3
+            trace.append(dict(sim3_kf=int(kf), candidates=[int(c) for c in cands],
+                              accept=bool(_np(fut["accept"])), inliers=int(_np(fut["n2"]))))
+        return poll(state)
+
+    lc._detect_host, lc._poll_sim3 = traced_detect, traced_poll
+
+
+def _port_system(voc):
+    from orbslam_mapsave_tpu_torch import config as tcfg
+    from orbslam_mapsave_tpu_torch.pipeline import system as tsys
+
+    return tsys.SLAMSystem(_config(tcfg), tsys.Sensor.RGBD, vocabulary=voc, device="cpu")
+
+
+def _port_vocabulary(frames, stamps, jax_voc=None):
+    """The port's vocabulary: trained as bench.py trains it, on the port's
+    FrameBuilder, or the JAX package's `jax_voc` read back from a .bin.
+    Returns (vocabulary, the port's training descriptors or None)."""
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary as tvoc
+
+    if jax_voc is not None:
+        from orbslam_mapsave_tpu.vocab import vocabulary
+
+        with tempfile.TemporaryDirectory() as d:
+            vocabulary.save_binary(Path(d) / "voc.bin", jax_voc)
+            return tvoc.load_binary(Path(d) / "voc.bin"), None
+    builder = _port_system(None).builder
+    descs = []
+    for i in range(0, N, 12):
+        fr = builder.build(frames[i][0], stamps[i], frames[i][1])
+        descs.append(fr.desc[fr.valid].numpy())
+    descs = np.concatenate(descs)
+    return tvoc.train(descs, k=10, L=4, seed=1), descs
+
+
+def _kidnap(cfg, voc, frames, poses, port: bool = False, trace: list | None = None) -> dict:
     order = list(range(KIDNAP_AT)) + [None] * KIDNAP_BLANKS + list(range(KIDNAP_RESUME, N))
     blank = (np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1]))
     seq = [frames[i] if i is not None else blank for i in order]
     stamps = 1000.0 + np.arange(len(order)) / 30.0
-    slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc)
-    states = _drive(slam, seq, stamps)
+    if port:
+        slam = _port_system(voc)
+        states = []
+        for (gray, depth), t in zip(seq, stamps):
+            slam.track_rgbd(gray, depth, t)
+            states.append(slam.tracking_state)
+        slam.flush_gba()
+    else:
+        slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc)
+        if trace is not None:
+            _traced(slam.loop_closer, trace)
+        states = _drive(slam, seq, stamps)
     shown = [j for j, i in enumerate(order) if i is not None]
     gt_ts, gt = stamps[shown], poses[[order[j] for j in shown]]
     lost = [j for j, (_, _, l) in enumerate(slam.tracker.trajectory) if l]
     after = KIDNAP_AT + KIDNAP_BLANKS
-    fid = np.asarray(slam.map.kf_frame_id)
+    fid = _np(slam.map.kf_frame_id)
+    if port:
+        ts, est = slam.keyframe_trajectory()
+        kf_ate = float(traj_io.ate_rmse(gt_ts, gt, ts, np.linalg.inv(est)))
+    else:
+        kf_ate = _kf_ate(slam, gt_ts, gt)
     return dict(
         frames=len(order), lost_frames=lost,
         reloc_frame=next((j for j in range(after, len(order))
                           if states[j] == tracking_mod.OK), None),
-        keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=_kf_ate(slam, gt_ts, gt),
+        keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=kf_ate,
         loops=len(slam.loop_closer.events),
-        events=[(int(fid[e.query_kf]), int(fid[e.match_kf])) for e in slam.loop_closer.events])
+        events=[(int(fid[e.query_kf]), int(fid[e.match_kf])) for e in slam.loop_closer.events],
+        kf_frame_ids=fid[_np(slam.map.kf_valid)].tolist())
 
 
 def _reuse(cfg, voc, frames, poses, stamps) -> dict:
@@ -162,6 +298,15 @@ def main():
     ap.add_argument("--reuse", action="store_true",
                     help="the headline configuration's map saved, reloaded and "
                          "localized against")
+    ap.add_argument("--mono", action="store_true",
+                    help="tools/bench_mono.py's workload: the image alone, monocular, "
+                         "with the vocabulary and loop closing")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --kidnap: print each loop detection and Sim3 read")
+    ap.add_argument("--port", action="store_true",
+                    help="with --kidnap: run the PyTorch port on the CPU instead")
+    ap.add_argument("--jax-vocabulary", action="store_true",
+                    help="with --port: hand the port the JAX package's vocabulary")
     ap.add_argument("--fetch-every", type=int, default=1,
                     help="tracker outcome cadence with --loop (JAX default 16)")
     args = ap.parse_args()
@@ -176,13 +321,44 @@ def main():
         gray, depth = room.render(K, poses[i], W, H)
         frames.append((np.clip(gray, 0, 255).astype(np.uint8).astype(np.float32),
                        depth.astype(np.float16).astype(np.float32)))
-    with_voc = args.loop or args.kidnap or args.reuse
+    with_voc = args.loop or args.kidnap or args.reuse or args.mono
     voc = _vocabulary(cfg, frames, stamps) if with_voc else None
+    if args.mono:
+        res = _mono(cfg, voc, frames, poses, stamps)
+        print(json.dumps(dict(mode="mono", n_words=voc.n_words, **res,
+                              seconds=time.time() - t0)))
+        return
+    if args.kidnap and args.port:
+        pvoc, pdescs = _port_vocabulary(frames, stamps, voc if args.jax_vocabulary else None)
+        differing = None
+        if pdescs is not None:  # which training descriptors the packages disagree on
+            jdescs = _descriptors(cfg, frames, stamps)
+            differing = (int(np.any(jdescs != pdescs, axis=1).sum())
+                         if jdescs.shape == pdescs.shape else [jdescs.shape, pdescs.shape])
+        trace: list = []
+        from orbslam_mapsave_tpu_torch.pipeline import loop_closing as tlc
+
+        init = tlc.LoopCloser.__init__
+
+        def traced_init(lc, *a, **k):
+            init(lc, *a, **k)
+            _traced(lc, trace)
+
+        tlc.LoopCloser.__init__ = traced_init
+        res = _kidnap(None, pvoc, frames, poses, port=True)
+        print(json.dumps(dict(mode="kidnap", package="port", n_words=pvoc.n_words,
+                              jax_n_words=voc.n_words, jax_vocabulary=args.jax_vocabulary,
+                              training_descriptors=len(pdescs) if pdescs is not None else None,
+                              training_descriptors_differing=differing, **res, trace=trace,
+                              seconds=time.time() - t0)))
+        return
     if args.kidnap or args.reuse:
-        res = (_kidnap(cfg, voc, frames, poses) if args.kidnap
+        trace = [] if args.trace else None
+        res = (_kidnap(cfg, voc, frames, poses, trace=trace) if args.kidnap
                else _reuse(cfg, voc, frames, poses, stamps))
+        extra = {} if trace is None else dict(trace=trace)
         print(json.dumps(dict(mode="kidnap" if args.kidnap else "reuse",
-                              n_words=voc.n_words, **res, seconds=time.time() - t0)))
+                              n_words=voc.n_words, **res, **extra, seconds=time.time() - t0)))
         return
     slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc,
                                  enable_loop_closing=args.loop,
