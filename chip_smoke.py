@@ -20,8 +20,10 @@ no result):
               microseconds as (t(n_iters=10) - t(n_iters=5)) / 20 at M = 2048
               and M = 128, and the share of an iteration that grows with M.
               Then the monocular path's problem, M = 2048 with every edge
-              mono (ur = -1): pose <= 1e-4 from the plain version, no
-              inlier flip, timed and bounded alike.
+              mono (ur = -1), and the stereo path's, every edge given its
+              right-image u (1,927 of them on the image, ur >= 0, the rest
+              mono): pose <= 1e-4 from the plain version, no inlier flip,
+              timed and bounded alike.
 4. slice    — the benchmark sequence (bench.py: 640x480, 2000 ORB features,
               circle_trajectory(240, radius=0.55, revs=1.30) in a
               BoxRoom(2.0, seed=11), u8 image + f16 depth) through
@@ -69,6 +71,20 @@ no result):
               BA lane dropped, one pose-LM launch per pose optimization;
               frames/s, p50/p99/max ms, the bootstrap's initializer and GBA
               ms and the loop stages' ms (synced inside the timed pass).
+    stereo  — the stereo workload: SLAMSystem(cfg, STEREO) at SystemConfig's
+              default capacities (512 keyframes, 65,536 points, 2,048
+              keypoints, what `run_slam --sensor stereo` runs) over the u8
+              images of the sequence with right images rendered from each
+              pose moved 0.08 m along the camera x axis (bf = 41.6, the
+              bench camera's), phase 7's vocabulary and loop closing on;
+              untimed over 24 frames, reset(), one timed pass: lost frames
+              no more than the JAX CPU run's, keyframes within 20%, kf ATE
+              within 1 cm, its loop count, every loop's global-BA job
+              applied and none aborted, no BA lane dropped, one pose-LM
+              launch per pose optimization, and at least one loop whose
+              essential graph ran the CG solver and whose job ran pcg_dual
+              (the routes past K = 384 and past a 2 GiB one-hot); frames/s,
+              p50/p99/max ms and the loop stages' ms (synced).
 9. kidnap   — lost and found in the headline configuration: SLAMSystem with
               phase 7's vocabulary over frames 0-149, 3 blank frames (zero
               image and depth), then the images of frames 100-239 with
@@ -104,7 +120,8 @@ no result):
               localization-only mode, relocalizes, leaves the loaded map as
               it is), and `apps/run_slam.py --save-map`, then `--reuse-map`,
               on a TUM copy of 60 bench frames (needs Pillow to read PNGs),
-              and `--sensor mono` on the same images.
+              `--sensor mono` on the same images, and `--sensor stereo` on a
+              KITTI-layout copy of them.
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
@@ -113,8 +130,8 @@ no result):
               host reads (stream syncs) and top device operations (last: a
               profile slows later launches).
 
-The last lines are the loop and mono slices' summaries, a JSON record of
-the kernels
+The last lines are the loop, mono and stereo slices' summaries, a JSON
+record of the kernels
 (`launches` from the loop slice, `launches_by_path` each slice's,
 `launches_batched` the B > 1 launches of the kidnap and reuse runs), the
 card's `nvidia-smi` name/power line, and
@@ -184,6 +201,22 @@ JAX_CPU_MONO_KEYFRAMES = 46
 JAX_CPU_MONO_KF_ATE_SIM3_M = 0.0029256094468043227
 JAX_CPU_MONO_EVENTS = [(158, 3)]  # (query, match) keyframes' frame ids
 MONO_MAX_KEYFRAMES = 96  # tools/bench_mono.py: mono culls harder
+# the stereo workload (`--stereo --default-caps`): the u8 images of the
+# sequence as left images, right images rendered from each pose moved
+# STEREO_BASELINE along the camera x axis (bf = 520 x 0.08 = 41.6, the bench
+# camera's), SLAMSystem(cfg, STEREO) at SystemConfig's default capacities
+# (512 keyframes, 65,536 points, 2,048 keypoints), bench.py's vocabulary and
+# loop closing on, one pass from a fresh system: no frame lost, 26
+# keyframes, 24,886 points, kf ATE 0.036113 m, 1 loop (query frame 217,
+# match frame 35, 1,176 inliers) whose essential graph ran the CG solver and
+# whose global-BA job ran pcg_dual and was applied, none aborted, 0 BA
+# lanes dropped
+STEREO_BASELINE = 0.08
+JAX_CPU_STEREO_LOST_FRAMES: list = []
+JAX_CPU_STEREO_KEYFRAMES = 26
+JAX_CPU_STEREO_KF_ATE_M = 0.0361134798947246
+JAX_CPU_STEREO_EVENTS = [(217, 35)]  # (query, match) keyframes' frame ids
+STEREO_CAPS = (512, 65536, 2048)  # SystemConfig's defaults: keyframes, points, keypoints
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
@@ -461,30 +494,47 @@ def phase_kernel(dev) -> dict:
             r["plain_ms"] = _time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1))
         res[B] = r
         log(f"[timing] M=2048 B={B} (CUDA events, median of 50): " + json.dumps(r))
-    # the monocular path's problem: every edge mono (ur = -1), M = 2048
-    mono = batch_obs([make_problem(2048, seed=7, stereo=0.0)], dev)
-    pose0 = eye[None].contiguous()
-    obs1 = pose_opt.PoseObs(*[x[0] for x in mono])
-
-    def kern_mono():
-        return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, mono)
-
-    pk, ik, nk = kern_mono()
-    pr, ir, _ = pose_opt.pose_optimization_ref(CAM, eye, obs1)
-    err = (pk[0] - pr).abs().max().item()
-    mono_flips = _check_inliers(CAM, pk[0], ik[0], nk[0], pr, ir, obs1)
-    if not err <= POSE_TOL or mono_flips:
-        raise AssertionError(f"all-mono problem: kernel != plain, pose err {err:.3g}, "
-                             f"{mono_flips} inlier flips")
-    r = dict(max_abs_err=err, flips=mono_flips, inliers=int(nk[0]), ms=_time_ms(kern_mono),
-             graph_ms=_time_kernel_ms(kern_mono),
-             plain_ms=_time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1)))
-    r["bound_ms"], r["bound_by"], r["sm_bound_ms"], r["flops"] = _bound_ms(pose0, mono)
-    res["mono"] = r
-    worst = max(worst, err)
-    log("[timing] M=2048 B=1, every edge mono (CUDA events, median of 50): " + json.dumps(r))
+    # the monocular path's problem (every edge mono, ur = -1) and the
+    # stereo path's (every edge given its right-image u), M = 2048
+    for name, share in (("mono", 0.0), ("stereo", 1.0)):
+        res[name] = _single_problem(dev, name, share)
+        worst = max(worst, res[name]["max_abs_err"])
     log(f"[kernel] max |pose err| {worst:.3g}, inlier flips at the gate: {flips}")
     return dict(max_abs_err=worst, flips=flips, timing=res)
+
+
+def _single_problem(dev, name: str, stereo: float) -> dict:
+    """One M = 2048 problem whose edges are stereo with share `stereo`:
+    the kernel against the plain version (pose within POSE_TOL, no inlier
+    flip), one synchronous call, the kernel alone, the plain version and
+    the bound from the FLOPs this problem needs."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.optim.pose_problem import (CAM, batch_obs,
+                                                              make_problem)
+
+    eye = torch.eye(4, device=dev)
+    obs = batch_obs([make_problem(2048, seed=7, stereo=stereo)], dev)
+    pose0 = eye[None].contiguous()
+    obs1 = pose_opt.PoseObs(*[x[0] for x in obs])
+
+    def kern():
+        return pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+
+    pk, ik, nk = kern()
+    pr, ir, _ = pose_opt.pose_optimization_ref(CAM, eye, obs1)
+    err = (pk[0] - pr).abs().max().item()
+    flips = _check_inliers(CAM, pk[0], ik[0], nk[0], pr, ir, obs1)
+    if not err <= POSE_TOL or flips:
+        raise AssertionError(f"all-{name} problem: kernel != plain, pose err {err:.3g}, "
+                             f"{flips} inlier flips")
+    r = dict(max_abs_err=err, flips=flips, inliers=int(nk[0]),
+             stereo_edges=int((obs1.ur >= 0).sum()), ms=_time_ms(kern),
+             graph_ms=_time_kernel_ms(kern),
+             plain_ms=_time_ms(lambda: pose_opt.pose_optimization_ref(CAM, eye, obs1)))
+    r["bound_ms"], r["bound_by"], r["sm_bound_ms"], r["flops"] = _bound_ms(pose0, obs)
+    log(f"[timing] M=2048 B=1, every edge {name} (CUDA events, median of 50): "
+        + json.dumps(r))
+    return r
 
 
 def phase_profile(dev):
@@ -525,7 +575,10 @@ def bench_sequence():
 
 
 def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=None,
-                  mono: bool = False):
+                  mono: bool = False, stereo: bool = False):
+    """bench.py's camera and ORB settings; RGB-D at bench.py's capacities,
+    monocular with MONO_MAX_KEYFRAMES, stereo at SystemConfig's default
+    capacities."""
     from orbslam_mapsave_tpu_torch import config as cfg_mod
     from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
 
@@ -534,10 +587,12 @@ def _bench_system(dev, enable_mapping: bool, vocabulary=None, reuse_map_path=Non
         fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, width=W, height=H,
         bf=520.0 * 0.08, th_depth=50.0, fps=30)
     cfg.orb = cfg_mod.ORBConfig(n_features=2000, n_levels=4, scale_factor=1.5)
-    cfg.max_keypoints = 2048
-    cfg.max_keyframes = MONO_MAX_KEYFRAMES if mono else 64
-    cfg.max_points = 32768
-    sensor = system_mod.Sensor.MONOCULAR if mono else system_mod.Sensor.RGBD
+    if not stereo:
+        cfg.max_keypoints = 2048
+        cfg.max_keyframes = MONO_MAX_KEYFRAMES if mono else 64
+        cfg.max_points = 32768
+    sensor = (system_mod.Sensor.MONOCULAR if mono else
+              system_mod.Sensor.STEREO if stereo else system_mod.Sensor.RGBD)
     return system_mod.SLAMSystem(cfg, sensor, vocabulary=vocabulary,
                                  enable_mapping=enable_mapping, device=dev,
                                  reuse_map_path=reuse_map_path)
@@ -1115,6 +1170,143 @@ def phase_mono(dev, seq, voc) -> dict:
     return res
 
 
+def right_twc(Twc: np.ndarray) -> np.ndarray:
+    """The stereo rig's right camera: Twc moved STEREO_BASELINE along its own
+    x axis (`io/synthetic.write_stereo_sequence`)."""
+    out = Twc.copy()
+    out[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([STEREO_BASELINE, 0.0, 0.0])
+    return out
+
+
+def stereo_right_images(seq) -> list:
+    """u8 right images of the bench trajectory, rendered in the bench room."""
+    from orbslam_mapsave_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    poses, _ = seq
+    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
+    room = synthetic.BoxRoom(half_size=2.0, seed=11)
+    out = [np.clip(room.render(K, right_twc(T), W, H)[0], 0, 255).astype(np.uint8)
+           for T in poses]
+    log(f"[stereo] rendered {len(out)} right images in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_stereo(dev, seq, voc) -> dict:
+    """The stereo workload on the card: SLAMSystem(cfg, STEREO) at
+    SystemConfig's default capacities over the bench sequence's u8 images
+    and right images rendered STEREO_BASELINE to the right, with the loop
+    phase's vocabulary and loop closing on. Untimed over WARMUP_FRAMES
+    frames, reset(), one timed 240-frame pass, one device sync per frame.
+    The loop stages are wrapped (synced) inside the timed pass, each
+    essential graph's and global-BA job's solver recorded. Held one-sided
+    to the JAX CPU run: lost frames no more, keyframes within 20%, kf ATE
+    within 1 cm, its loop count, every loop's job applied and none
+    aborted, no BA lane dropped, one pose-LM launch per pose optimization,
+    and at least one CG essential graph and one applied pcg_dual job."""
+    from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
+    from orbslam_mapsave_tpu_torch.optim import global_ba, pose_graph, pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
+
+    poses, frames = seq
+    rights = stereo_right_images(seq)
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    slam = _bench_system(dev, True, vocabulary=voc, stereo=True)
+    caps = (slam.cfg.max_keyframes, slam.cfg.max_points, slam.cfg.max_keypoints)
+    if caps != STEREO_CAPS or slam.tracker.cfg.motion_th != 7.0:
+        raise AssertionError(f"stereo system at caps {caps}, motion_th "
+                             f"{slam.tracker.cfg.motion_th}")
+    lc = slam.loop_closer
+    for i in range(WARMUP_FRAMES):
+        slam.track_stereo(frames[i][0], rights[i], stamps[i])
+    slam.flush_gba()
+    warmup_keyframes = slam.n_keyframes
+    slam.reset()
+    torch.cuda.synchronize()
+
+    calls, timed, essential_solvers, gba_solvers = 0, [], [], []
+    dispatch = pose_opt.pose_optimization
+    solve_graph = pose_graph.optimize_pose_graph
+    job_init = gba_mod.GBAJob.__init__
+
+    def counted(*args):
+        nonlocal calls
+        calls += 1
+        return dispatch(*args)
+
+    def recorded_graph(prob, *a, **k):
+        essential_solvers.append(k.get("solver", "dense"))
+        return solve_graph(prob, *a, **k)
+
+    def recorded_job(job, *a, **k):
+        job_init(job, *a, **k)
+        gba_solvers.append(job._solver)
+
+    stages = [(lc, "_sim3_chain", "sim3 lane"), (lc, "_correct", "correct"),
+              (lc, "_essential", "essential"), (global_ba, "gba_init", "gba_init"),
+              (global_ba, "gba_iterate", "gba_iter"), (gba_mod, "_apply_device", "gba_apply")]
+    patches = [(obj, name, _synced(getattr(obj, name), label, timed))
+               for obj, name, label in stages]
+    patches += [(pose_opt, "pose_optimization", counted),
+                (pose_graph, "optimize_pose_graph", recorded_graph),
+                (gba_mod.GBAJob, "__init__", recorded_job)]
+    frame_ms = np.empty(N_FRAMES)
+    with _patched(patches):
+        pose_opt_cuda.reset_launches()
+        t_start = time.perf_counter()
+        for i in range(N_FRAMES):
+            t1 = time.perf_counter()
+            pose = slam.track_stereo(frames[i][0], rights[i], stamps[i])
+            torch.cuda.synchronize()
+            frame_ms[i] = 1e3 * (time.perf_counter() - t1)
+            if pose.shape != (4, 4) or not np.isfinite(pose).all():
+                raise AssertionError(f"frame {i}: bad pose {pose}")
+        slam.flush_gba()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    launches = pose_opt_cuda.launches
+
+    lost = [i for i, (_, _, l) in enumerate(slam.tracker.trajectory) if l]
+    ts, est = slam.keyframe_trajectory()
+    kf_ate = traj_io.ate_rmse(stamps, poses, ts, np.linalg.inv(est))
+    events = _loop_events(slam)
+    map_dropped, _ = slam.mapper.ba_lane_stats()
+    res = dict(frames=N_FRAMES, caps=list(caps), fps=N_FRAMES / wall,
+               p50_ms=float(np.percentile(frame_ms, 50)),
+               p99_ms=float(np.percentile(frame_ms, 99)), max_ms=float(frame_ms.max()),
+               slowest_frame=int(np.argmax(frame_ms)), lost_frames=lost,
+               keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=kf_ate,
+               loops=len(events), events=events, inliers=[e.n_inliers for e in lc.events],
+               gba_applied=lc.gba_applied, gba_aborted=lc.gba_aborted,
+               essential_solvers=essential_solvers, gba_solvers=gba_solvers,
+               ba_lanes_dropped=slam.tracker.ba_lanes_dropped + map_dropped,
+               pose_optimizations=calls, launches=launches,
+               warmup_keyframes=warmup_keyframes,
+               jax_cpu=dict(lost_frames=JAX_CPU_STEREO_LOST_FRAMES,
+                            keyframes=JAX_CPU_STEREO_KEYFRAMES,
+                            kf_ate_m=JAX_CPU_STEREO_KF_ATE_M, events=JAX_CPU_STEREO_EVENTS),
+               stages_ms=_stage_summary(timed))
+    log("[stereo] " + json.dumps({k: v for k, v in res.items() if k != "stages_ms"}))
+    log("[stereo] loop stage ms (host clock, synced; essential: "
+        f"{essential_solvers}, GBA jobs: {gba_solvers}): " + json.dumps(res["stages_ms"]))
+    if len(lost) > len(JAX_CPU_STEREO_LOST_FRAMES):
+        raise AssertionError(f"lost frames {lost}, JAX CPU {JAX_CPU_STEREO_LOST_FRAMES}")
+    _check_quality(res, JAX_CPU_STEREO_KEYFRAMES, JAX_CPU_STEREO_KF_ATE_M)
+    if res["loops"] != len(JAX_CPU_STEREO_EVENTS):
+        raise AssertionError(f"{res['loops']} loops vs JAX CPU {len(JAX_CPU_STEREO_EVENTS)}")
+    if lc.gba_applied != res["loops"] or lc.gba_aborted:
+        raise AssertionError(f"GBA jobs: {lc.gba_applied} applied, {lc.gba_aborted} aborted "
+                             f"for {res['loops']} loops")
+    if "cg" not in essential_solvers or "pcg_dual" not in gba_solvers or not lc.gba_applied:
+        raise AssertionError(f"no loop ran the CG essential graph and an applied pcg_dual "
+                             f"job: essential {essential_solvers}, GBA {gba_solvers}")
+    if res["ba_lanes_dropped"] != 0:
+        raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
+    if launches != calls or calls < 2 * (N_FRAMES - len(lost) - 1):
+        raise AssertionError(f"{launches} pose-LM launches for {calls} pose optimizations")
+    return res
+
+
 def _kidnap_sequence(seq):
     """(frames, ground-truth index per frame or None for a blank): frames
     0..KIDNAP_AT-1, KIDNAP_BLANKS blank frames, then KIDNAP_RESUME.."""
@@ -1440,7 +1632,9 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
     `--save-map` over a TUM copy of the bench trajectory's first CLI_FRAMES
     frames (PNG files, the bench room), then `--reuse-map` on it: starts
     LOST in localization-only mode, relocalizes, the map unchanged; then
-    `--sensor mono` on the same images: bootstraps and tracks. The
+    `--sensor mono` on the same images: bootstraps and tracks; then
+    `--sensor stereo` on a KITTI-layout copy of the same frames (left and
+    right images, STEREO_BASELINE apart): tracks at least 50 of them. The
     dataset reader needs Pillow; a machine without it runs the first part
     only and says so."""
     import importlib.util
@@ -1477,6 +1671,8 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
     K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
     data = synthetic.write_tum_sequence(tmp / "tum", K, poses[:CLI_FRAMES], width=W, height=H,
                                         seed=11)
+    kitti = synthetic.write_stereo_sequence(tmp / "kitti", K, poses[:CLI_FRAMES], width=W,
+                                            height=H, baseline=STEREO_BASELINE, seed=11)
     _camera_yaml(tmp / "cam.yaml")
     vocabulary.save_binary(tmp / "voc.bin", voc)
     base = ["--dataset", str(data), "--camera-yaml", str(tmp / "cam.yaml"),
@@ -1500,7 +1696,11 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
         run_slam.main(base + ["--sensor", "mono", "--out", str(tmp / "m.txt"),
                               "--kf-out", str(tmp / "mk.txt")])
         t3 = time.perf_counter()
-    (first, _, _), (reuse, loc_only, state0), (mono, _, _) = systems
+        run_slam.main(["--dataset", str(kitti), "--camera-yaml", str(tmp / "cam.yaml"),
+                       "--vocabulary", str(tmp / "voc.bin"), "--sensor", "stereo",
+                       "--out", str(tmp / "s.txt"), "--kf-out", str(tmp / "sk.txt")])
+        t4 = time.perf_counter()
+    (first, _, _), (reuse, loc_only, state0), (mono, _, _), (st, _, _) = systems
     lost = [lost for _, _, lost in reuse.tracker.trajectory]
     res["run_slam"] = dict(device=str(first.device), slam_s=t1 - t0, reuse_s=t2 - t1,
                            keyframes=first.n_keyframes, points=first.n_points,
@@ -1513,6 +1713,11 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
                                 seconds=t3 - t2, keyframes=mono.n_keyframes,
                                 points=mono.n_points, tracked_frames=mono_lost.count(False),
                                 frames=len(mono_lost))
+    st_lost = [lost for _, _, lost in st.tracker.trajectory]
+    res["run_slam_stereo"] = dict(device=str(st.device), sensor=st.sensor.name,
+                                  seconds=t4 - t3, keyframes=st.n_keyframes,
+                                  points=st.n_points, tracked_frames=st_lost.count(False),
+                                  frames=len(st_lost))
     log("[cli] " + json.dumps(res))
     r = res["run_slam"]
     if first.device.type != "cuda" or not loc_only or state0 != tracking.LOST:
@@ -1522,6 +1727,9 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
     m = res["run_slam_mono"]
     if mono.device.type != "cuda" or m["keyframes"] < 2 or m["tracked_frames"] < CLI_FRAMES // 2:
         raise AssertionError(f"run_slam --sensor mono: {m}")
+    m = res["run_slam_stereo"]
+    if st.device.type != "cuda" or m["frames"] != CLI_FRAMES or m["tracked_frames"] < 50:
+        raise AssertionError(f"run_slam --sensor stereo: {m}")
     return res
 
 
@@ -1641,6 +1849,7 @@ def main() -> int:
             lres, lc, lcap = phase_loop(dev, seq, map_path)
             phase_loop_replay(lc, lcap)
             mono = phase_mono(dev, seq, lc.voc)
+            st = phase_stereo(dev, seq, lc.voc)
             kid = phase_kidnap(dev, seq, lc.voc)
             reu = phase_reuse(dev, seq, lc.voc, map_path, lres["save_ms"])
             phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
@@ -1663,6 +1872,10 @@ def main() -> int:
         "fps", "p50_ms", "p99_ms", "max_ms", "bootstrap_frame", "loops", "events",
         "keyframes", "points", "kf_ate_sim3_m", "launches", "pose_optimizations",
         "gba_applied", "ba_lanes_dropped")}))
+    log("[chip_smoke] stereo slice: " + json.dumps({k: st[k] for k in (
+        "fps", "p50_ms", "p99_ms", "max_ms", "lost_frames", "loops", "events", "keyframes",
+        "points", "kf_ate_m", "launches", "pose_optimizations", "gba_applied",
+        "essential_solvers", "gba_solvers", "ba_lanes_dropped")}))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
@@ -1681,7 +1894,8 @@ def main() -> int:
         "sm_bound_ms": t1["sm_bound_ms"],
         "launches_batched": kid["launches_batched"] + reu["launches_batched"],
         "launches_by_path": {"loop": lres["launches"], "mono": mono["launches"],
-                             "kidnap": kid["launches"], "reuse": reu["launches"]},
+                             "kidnap": kid["launches"], "reuse": reu["launches"],
+                             "stereo": st["launches"]},
         "batched_B": reu["batched_launch"]["B"],
         "batched_ms": reu["batched_launch"]["ms"],
         "batched_graph_ms": reu["batched_launch"]["graph_ms"],
@@ -1696,6 +1910,11 @@ def main() -> int:
         "mono_problem_plain_ms": kres["timing"]["mono"]["plain_ms"],
         "mono_problem_bound_ms": kres["timing"]["mono"]["bound_ms"],
         "mono_problem_max_abs_err": kres["timing"]["mono"]["max_abs_err"],
+        "stereo_problem_ms": kres["timing"]["stereo"]["ms"],
+        "stereo_problem_graph_ms": kres["timing"]["stereo"]["graph_ms"],
+        "stereo_problem_plain_ms": kres["timing"]["stereo"]["plain_ms"],
+        "stereo_problem_bound_ms": kres["timing"]["stereo"]["bound_ms"],
+        "stereo_problem_max_abs_err": kres["timing"]["stereo"]["max_abs_err"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

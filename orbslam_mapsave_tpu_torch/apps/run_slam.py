@@ -1,9 +1,9 @@
 """Dataset-driven SLAM main: the reference's example executables as one CLI.
 
-Port of `orbslam_mapsave_tpu/apps/run_slam.py` for RGB-D and monocular
-input (`Examples/RGBD_LoadImages.cpp`, `RGBDFast_LoadImages.cpp`,
-`Monocular_LoadImages.cpp`; a growing image directory with `--follow`
-stands in for a live sensor):
+Port of `orbslam_mapsave_tpu/apps/run_slam.py` (`Examples/RGBD_LoadImages.cpp`,
+`RGBDFast_LoadImages.cpp`, `Monocular_LoadImages.cpp`,
+`Stereo_LoadImages.cpp`; a growing image directory with `--follow` stands in
+for a live mono or RGB-D sensor):
 
     python -m orbslam_mapsave_tpu_torch.apps.run_slam --dataset /path/to/tum \\
         --sensor rgbd --camera-yaml ORB_RGBD640x480.yaml --vocabulary voc.bin \\
@@ -14,8 +14,8 @@ Honors the master Setting.yaml cascade (`Examples/Setting.yaml`: vocabulary
 path, camera settings path, reuse-map flag and path). Runs on the CUDA card
 unless `--device` names another (`--device cpu` runs the plain PyTorch
 path). `--sensor mono` reads the TUM rgb.txt images alone; `--sensor stereo`
-raises NotImplementedError (a later slice); the viewer options wait for the
-`viz/` slice and exit with an error.
+reads a KITTI-layout directory (image_0/ left, image_1/ right, times.txt);
+the viewer options wait for the `viz/` slice and exit with an error.
 """
 
 from __future__ import annotations
@@ -96,13 +96,17 @@ def main(argv=None):
         print(f"  frame {i}: {state} kfs={slam.n_keyframes} pts={slam.n_points} {extra}",
               file=sys.stderr)
 
-    def track(gray, depth, t):
+    def track(gray, other, t):  # other: the depth map, or the right image for stereo
         if sensor == system_mod.Sensor.MONOCULAR:
             return slam.track_monocular(gray, t)
-        return slam.track_rgbd(gray, depth, t)
+        if sensor == system_mod.Sensor.STEREO:
+            return slam.track_stereo(gray, other, t)
+        return slam.track_rgbd(gray, other, t)
 
     t_track = []
     if args.follow:
+        if sensor == system_mod.Sensor.STEREO:
+            raise SystemExit("--follow supports mono/rgbd directories")
         src = dataset_mod.FollowSource(
             dataset_root, depth_factor=cfg.camera.depth_map_factor,
             fps=cfg.camera.fps, idle_timeout=args.follow_timeout)
@@ -123,9 +127,9 @@ def main(argv=None):
         n = len(ds) if not args.max_frames else min(len(ds), args.max_frames)
         print(f"Tracking {n} frames from {dataset_root} ({args.sensor}) ...")
         for i in range(n):
-            t, gray, depth = ds[i]
+            t, gray, other = ds.stereo(i) if sensor == system_mod.Sensor.STEREO else ds[i]
             t0 = time.perf_counter()
-            track(gray, depth, t)
+            track(gray, other, t)
             t_track.append(time.perf_counter() - t0)
             if i % 30 == 0:
                 log(i, f"({1e3 * t_track[-1]:.0f} ms)")

@@ -1,20 +1,32 @@
-"""Full-map bundle adjustment with a dense reduced camera system.
+"""Full-map bundle adjustment: the reduced camera system solved densely or
+by preconditioned conjugate gradients.
 
-Port of `orbslam_mapsave_tpu/optim/global_ba.py`, the dense route
+Port of `orbslam_mapsave_tpu/optim/global_ba.py`
 (`Optimizer::GlobalBundleAdjustemnt`, `src/Optimizer.cc:41-237`): every
 valid keyframe and point in one problem, laid out point-major (P points x
-O_GBA observation lanes) with a camera-major twin for the edge-set check.
-Every camera-side sum (Hcc, gc, the Schur complement S = Hcc - W Hpp^-1
-W^T) is a contraction against the (P,O,K) one-hot of the observing camera
-(exact for 0/1 operands with TF32 off, and order-free, so card runs repeat
-bit for bit); S is assembled in 8 point chunks and solved by Cholesky. LM
-damping, gauge fixing on keyframe slot 0 and the small-gain stop match the
-JAX version. The incremental form (`gba_init` + one `gba_iterate` per LM
-iteration) is what the loop closer's global-BA job pumps; the one-shot
-form (`full_bundle_adjustment`) is the monocular bootstrap's.
+O_GBA observation lanes) and camera-major (K keyframes x N feature lanes),
+both holding the same edge set. Three solvers of the camera system:
 
-Not ported yet: the PCG solvers (`solver="pcg"` and `"pcg_dual"`, past
-K = 384; the scale slice); the planar tables are TPU-only.
+- `"dense"` (K <= 384): every camera-side sum (Hcc, gc, the Schur
+  complement S = Hcc - W Hpp^-1 W^T) is a contraction against the (P,O,K)
+  one-hot of the observing camera; S is assembled in 8 point chunks and
+  solved by Cholesky.
+- `"pcg"` (more live keyframes): the same one-hot sums, S applied
+  implicitly inside block-Jacobi PCG (the 6x6 diagonal of S).
+- `"pcg_dual"` (whenever the one-hot would take 2 GiB or more): no one-hot
+  at all; point-side sums run over the O axis of the point-major lanes,
+  camera-side sums over the N axis of the camera-major lanes, and the
+  Schur product chains the two through row gathers; damped-Hcc
+  block-Jacobi PCG. (The JAX version stores these lanes as flat 1-D
+  planes for the TPU's tiling; here they keep their (P,O) and (K,N)
+  shapes.)
+
+Every sum is a contraction or a reduction over a lane axis, never a float
+scatter-add, so card runs repeat bit for bit. LM damping, gauge fixing on
+keyframe slot 0 and the small-gain stop match the JAX version. The
+incremental form (`gba_init` + one `gba_iterate` per LM iteration) is what
+the loop closer's global-BA job pumps; the one-shot form
+(`full_bundle_adjustment`) is the monocular bootstrap's.
 """
 
 from __future__ import annotations
@@ -30,11 +42,18 @@ from . import lm
 _BEHIND_PENALTY = 1e7  # see local_ba._BEHIND_PENALTY
 O_GBA = 16  # observation lanes per point in the full-map problem (of MAX_OBS)
 GBA_RTOL = 1e-5  # an accepted step gaining less than this share of the cost is small
+DENSE_MAX_K = 384  # solver="auto": dense up to this many keyframe slots, pcg above
+SOLVERS = ("dense", "pcg", "pcg_dual")
 
 
-def _not_yet(what: str):
-    return NotImplementedError(f"{what} is not ported to orbslam_mapsave_tpu_torch yet "
-                               "(the scale slice); the dense route runs up to K = 384")
+def _route(solver: str, K: int) -> str:
+    """The solver a call runs: "auto" is dense up to DENSE_MAX_K keyframe
+    slots and pcg above (JAX `full_bundle_adjustment`)."""
+    if solver == "auto":
+        return "dense" if K <= DENSE_MAX_K else "pcg"
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown global-BA solver {solver!r}")
+    return solver
 
 
 class FullBATables(NamedTuple):
@@ -152,12 +171,10 @@ def _weights(chi2, ok_z, live, is2, is_st, robust: bool):
     return torch.where(live & ok_z, is2 * w_rob, torch.zeros_like(chi2))
 
 
-def _schur_blocks(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torch.Tensor):
-    """The LM step's prologue: per-lane blocks reduced to (W_po, WH,
-    Hpp_inv, Hcc_d, rhs, gp, pt_has)."""
-    K = poses.shape[0]
-    P, O = tb.po_cam.shape
-    dtype = pts.dtype
+def _point_blocks(cam, poses, pts, tb: FullBATables, robust: bool, lam):
+    """The point-major lanes reduced per point: (r, Jc, w Jc, W (P,O,6,3),
+    Hpp^-1 (P,3,3) damped, gp (P,3), pt_has). Camera Jacobians are zeroed
+    on lanes of fixed or dead keyframes."""
     r_po, Jc_po, Jp_po, chi2_po, okz_po, st_po = _po_terms(cam, poses, pts, tb)
     free_lane = tb.cam_free[_c0(tb.po_cam)] & (tb.po_cam >= 0) & tb.po_valid
     Jc_po = torch.where(free_lane[..., None, None], Jc_po, torch.zeros_like(Jc_po))
@@ -168,19 +185,34 @@ def _schur_blocks(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torc
     gp = -torch.sum(wJp * r_po[..., None], dim=(1, 2))  # (P,3)
     W_po = torch.sum(wJc[..., :, :, None] * Jp_po[..., :, None, :], dim=-3)  # (P,O,6,3)
     pt_has = (torch.sum(w_po, -1) > 0) & tb.pt_valid
-    eye3 = torch.eye(3, dtype=dtype, device=pts.device)
+    eye3 = torch.eye(3, dtype=pts.dtype, device=pts.device)
     Hpp_d = Hpp + eye3 * (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + 1e-8)[..., None]
     Hpp_inv = lm.inv3x3(torch.where(pt_has[:, None, None], Hpp_d, eye3))
     Hpp_inv = torch.where(pt_has[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
+    return r_po, Jc_po, wJc, W_po, Hpp_inv, gp, pt_has
 
+
+def _damped_cams(Hcc: torch.Tensor, lam, cam_free: torch.Tensor) -> torch.Tensor:
+    """Hcc with lam-scaled diagonal damping; identity blocks for fixed and
+    invalid keyframes."""
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    Hcc_d = Hcc + eye6 * (lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-8)[..., None]
+    return torch.where(cam_free[:, None, None], Hcc_d, eye6)
+
+
+def _schur_blocks(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torch.Tensor):
+    """The one-hot routes' LM-step prologue: per-lane blocks reduced to
+    (W_po, WH, Hpp_inv, Hcc_d, rhs, gp, pt_has)."""
+    K = poses.shape[0]
+    P, O = tb.po_cam.shape
+    r_po, Jc_po, wJc, W_po, Hpp_inv, gp, pt_has = _point_blocks(cam, poses, pts, tb, robust,
+                                                                lam)
     # camera blocks: one-hot contractions over the same lanes
     JcwJc = torch.sum(wJc[..., :, :, None] * Jc_po[..., :, None, :], dim=-3)  # (P,O,6,6)
     oh_f = oh.reshape(P * O, K).T  # (K,P*O)
     Hcc = (oh_f @ JcwJc.reshape(P * O, 36)).reshape(K, 6, 6)
     gc = -(oh_f @ torch.sum(wJc * r_po[..., None], dim=-2).reshape(P * O, 6))
-    eye6 = torch.eye(6, dtype=dtype, device=pts.device)
-    Hcc_d = Hcc + eye6 * (lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-8)[..., None]
-    Hcc_d = torch.where(tb.cam_free[:, None, None], Hcc_d, eye6)
+    Hcc_d = _damped_cams(Hcc, lam, tb.cam_free)
 
     WH = torch.einsum("poab,pbc->poac", W_po, Hpp_inv)  # (P,O,6,3)
     gp_z = torch.sum(Hpp_inv * gp[:, None, :], dim=-1)  # (P,3)
@@ -233,25 +265,126 @@ def _solve_dense(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torch
     return dx_cam, _backsub_points(tb, W_po, Hpp_inv, gp, pt_has, dx_cam)
 
 
+def _inv_blocks(D: torch.Tensor) -> torch.Tensor:
+    """Inverse of each (6,6) block; a block that does not invert gives the
+    identity (the JAX non-finite -> identity rule)."""
+    eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
+    Minv, info = torch.linalg.inv_ex(D)
+    return torch.where(torch.isfinite(Minv) & (info == 0)[:, None, None], Minv, eye6)
+
+
+def _solve_pcg(cam, poses, pts, tb: FullBATables, robust: bool, lam, oh: torch.Tensor,
+               cg_iters: int, cg_tol: float):
+    """One damped LM step by PCG on the implicit Schur complement (JAX
+    `_solve_pcg`): camera-side sums against the one-hot, the exact 6x6
+    diagonal of S as block-Jacobi preconditioner, stopping at
+    |r| <= cg_tol * |rhs|."""
+    K = poses.shape[0]
+    W_po, WH, Hpp_inv, Hcc_d, rhs, gp, pt_has = _schur_blocks(
+        cam, poses, pts, tb, robust, lam, oh)
+    P, O = W_po.shape[:2]
+    oh_f = oh.reshape(P * O, K).T  # (K,P*O)
+    live = (tb.po_cam >= 0)[..., None]
+    cam_ix = _c0(tb.po_cam)
+
+    def matvec(x):  # (K,6) -> (K,6)
+        x_lane = torch.where(live, x[cam_ix], torch.zeros((), device=x.device))
+        t = torch.sum(W_po * x_lane[..., :, None], dim=(1, 2))  # (P,3)
+        z = torch.sum(Hpp_inv * t[:, None, :], dim=-1)
+        contrib = torch.sum(W_po * z[:, None, None, :], dim=-1)  # (P,O,6)
+        return (Hcc_d @ x[..., None])[..., 0] - oh_f @ contrib.reshape(P * O, 6)
+
+    WHW = torch.einsum("poac,podc->poad", WH, W_po)  # (P,O,6,6)
+    S_diag = Hcc_d - (oh_f @ WHW.reshape(P * O, 36)).reshape(K, 6, 6)
+    S_diag = torch.where(tb.cam_free[:, None, None], S_diag,
+                         torch.eye(6, dtype=pts.dtype, device=pts.device))
+    Minv = _inv_blocks(S_diag)
+    tol = cg_tol * torch.clamp(torch.sqrt(torch.sum(rhs * rhs)), min=1e-20)
+    dx_cam = lm.pcg(matvec, lambda v: (Minv @ v[..., None])[..., 0], rhs, cg_iters,
+                    lambda r: torch.sqrt(torch.sum(r * r)) > tol)
+    dx_cam = torch.where(torch.isfinite(dx_cam) & tb.cam_free[:, None], dx_cam,
+                         torch.zeros_like(dx_cam))
+    return dx_cam, _backsub_points(tb, W_po, Hpp_inv, gp, pt_has, dx_cam)
+
+
+def _solve_pcg_dual(cam, poses, pts, tb: FullBATables, robust: bool, lam,
+                    cg_iters: int, cg_tol: float):
+    """One damped LM step by PCG with no one-hot (JAX `_solve_pcg_planar`):
+    point-side blocks summed over the O axis of the point-major lanes,
+    camera-side blocks over the N axis of the camera-major lanes; the Schur
+    product gathers x to the point lanes (W^T x, Hpp^-1) and the result to
+    the camera lanes (W z). Preconditioner: the damped Hcc blocks; stops at
+    |r| / |rhs| <= cg_tol."""
+    _, _, _, W_po, Hpp_inv, gp, pt_has = _point_blocks(cam, poses, pts, tb, robust, lam)
+    cam_ix = _c0(tb.po_cam)
+
+    # camera-major blocks: each keyframe's pose broadcast over its lanes
+    pt_ix = _c0(tb.cm_pt)
+    r_cm, Jc_cm, Jp_cm, chi2_cm, okz_cm, st_cm = _edge_terms(
+        cam, poses[:, None], pts[pt_ix], tb.cm_uv, tb.cm_ur, tb.cm_is2)
+    w_cm = _weights(chi2_cm, okz_cm, tb.cm_valid, tb.cm_is2, st_cm, robust)
+    w_cm = torch.where(tb.cam_free[:, None] & tb.cm_valid, w_cm, torch.zeros_like(w_cm))
+    wJc = Jc_cm * w_cm[..., None, None]
+    Hcc = torch.sum(wJc[..., :, :, None] * Jc_cm[..., :, None, :], dim=(1, 2))  # (K,6,6)
+    gc = -torch.sum(wJc * r_cm[..., None], dim=(1, 2))
+    W_cm = torch.sum(wJc[..., :, :, None] * Jp_cm[..., :, None, :], dim=-3)  # (K,N,6,3)
+    Hcc_d = _damped_cams(Hcc, lam, tb.cam_free)
+
+    def hpp_apply(v):  # (P,3)
+        return torch.sum(Hpp_inv * v[:, None, :], dim=-1)
+
+    def cam_side(z):  # sum_N W_cm z_lane: (P,3) -> (K,6)
+        return torch.sum(W_cm * z[pt_ix][..., None, :], dim=(1, 3))
+
+    rhs = gc - cam_side(hpp_apply(gp))
+    rhs = torch.where(tb.cam_free[:, None], rhs, torch.zeros_like(rhs))
+
+    def matvec(x):  # (K,6)
+        t = torch.sum(W_po * x[cam_ix][..., :, None], dim=(1, 2))  # (P,3)
+        return (Hcc_d @ x[..., None])[..., 0] - cam_side(hpp_apply(t))
+
+    Minv = _inv_blocks(Hcc_d)
+    rhs_norm = torch.sqrt(torch.sum(rhs * rhs)) + 1e-30
+    dx_cam = lm.pcg(matvec, lambda v: (Minv @ v[..., None])[..., 0], rhs, cg_iters,
+                    lambda r: torch.sqrt(torch.sum(r * r)) / rhs_norm > cg_tol,
+                    safe_pAp=lambda d: torch.clamp(d, min=1e-30))
+    dx_cam = torch.where(torch.isfinite(dx_cam) & tb.cam_free[:, None], dx_cam,
+                         torch.zeros_like(dx_cam))
+    return dx_cam, _backsub_points(tb, W_po, Hpp_inv, gp, pt_has, dx_cam)
+
+
+def _lm_step(cam, poses, pts, tb: FullBATables, robust: bool, lam, solver: str,
+             cg_iters: int, cg_tol: float, oh: torch.Tensor | None = None):
+    """(dx_cam, dx_pt) of one damped LM step by the named solver; the
+    one-hot routes build `oh` unless given it."""
+    if solver == "pcg_dual":
+        return _solve_pcg_dual(cam, poses, pts, tb, robust, lam, cg_iters, cg_tol)
+    if oh is None:
+        oh = _onehot_po(tb, poses.shape[0])
+    if solver == "dense":
+        return _solve_dense(cam, poses, pts, tb, robust, lam, oh)
+    return _solve_pcg(cam, poses, pts, tb, robust, lam, oh, cg_iters, cg_tol)
+
+
 def full_bundle_adjustment(cam: projection.Camera, state: ms.MapState,
                            inv_level_sigma2: torch.Tensor, n_iters: int = 10,
-                           robust: bool = False, solver: str = "dense"):
+                           robust: bool = False, solver: str = "auto", cg_iters: int = 100,
+                           cg_tol: float = 1e-3):
     """Full-map BA over every valid keyframe and point, n_iters damped LM
     iterations in one call (the monocular bootstrap runs 20 robust ones,
     `src/Tracking.cc:931`). Unlike `gba_iterate` there is no small-gain
     stop, and the poses come back orthonormalized, as in the JAX version.
+    `solver` is "dense", "pcg", "pcg_dual" or "auto" (`_route`).
     Returns (kf_pose (K,4,4), pt_pos (P,3), final cost)."""
-    if solver != "dense":
-        raise _not_yet(f"the {solver!r} global-BA solver")
     inv_level_sigma2 = torch.as_tensor(inv_level_sigma2, device=state.device)
     tb = build_tables(state, inv_level_sigma2)
     poses, pts = state.kf_pose, state.pt_pos
-    K = poses.shape[0]
-    oh = _onehot_po(tb, K)
+    solver = _route(solver, poses.shape[0])
+    oh = _onehot_po(tb, poses.shape[0]) if solver != "pcg_dual" else None
     cur = _accept_cost(cam, poses, pts, tb, robust)
     lam = torch.tensor(1e-4, dtype=pts.dtype, device=state.device)
     for _ in range(n_iters):
-        dxc, dxp = _solve_dense(cam, poses, pts, tb, robust, lam, oh)
+        dxc, dxp = _lm_step(cam, poses, pts, tb, robust, lam, solver, cg_iters, cg_tol, oh)
         new_poses = se3.se3_exp(dxc) @ poses
         new_pts = pts + dxp
         new = _accept_cost(cam, new_poses, new_pts, tb, robust)
@@ -266,9 +399,10 @@ def full_bundle_adjustment(cam: projection.Camera, state: ms.MapState,
 def gba_init(cam: projection.Camera, state: ms.MapState, inv_level_sigma2: torch.Tensor,
              robust: bool = False, solver: str = "dense"):
     """Problem tables + initial carry (poses, pts, lam, cost, small-gain
-    streak) of an incremental global BA."""
-    if solver != "dense":
-        raise _not_yet(f"the {solver!r} global-BA solver")
+    streak) of an incremental global BA. Every solver shares the tables:
+    both lane layouts, which pcg_dual reads and the one-hot routes rebuild
+    their operator from at each iteration."""
+    _route(solver, state.kf_capacity)
     tb = build_tables(state, inv_level_sigma2)
     cur0 = _accept_cost(cam, state.kf_pose, state.pt_pos, tb, robust)
     lam0 = torch.tensor(1e-4, dtype=state.pt_pos.dtype, device=state.device)
@@ -277,17 +411,15 @@ def gba_init(cam: projection.Camera, state: ms.MapState, inv_level_sigma2: torch
 
 
 def gba_iterate(cam: projection.Camera, tb: FullBATables, poses, pts, lam, cur, small,
-                robust: bool = False, solver: str = "dense"):
+                robust: bool = False, solver: str = "dense", cg_iters: int = 100,
+                cg_tol: float = 1e-3):
     """One damped LM iteration (the JAX `gba_iterate`). `small` counts
     consecutive accepted steps that gain < GBA_RTOL * cost; from 2 on, the
     carry passes through untouched. That test is a host `if` on one read."""
-    if solver != "dense":
-        raise _not_yet(f"the {solver!r} global-BA solver")
+    solver = _route(solver, poses.shape[0])
     if int(small) >= 2:
         return poses, pts, lam, cur, small
-    K = poses.shape[0]
-    oh = _onehot_po(tb, K)
-    dxc, dxp = _solve_dense(cam, poses, pts, tb, robust, lam, oh)
+    dxc, dxp = _lm_step(cam, poses, pts, tb, robust, lam, solver, cg_iters, cg_tol)
     new_poses = se3.se3_exp(dxc) @ poses
     new_pts = pts + dxp
     new = _accept_cost(cam, new_poses, new_pts, tb, robust)

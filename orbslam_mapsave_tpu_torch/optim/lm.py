@@ -101,3 +101,38 @@ def solve_spd(H: torch.Tensor, g: torch.Tensor, lam,
     dx = y * s
     ok = torch.isfinite(dx) & (info == 0)[..., None]
     return torch.where(ok, dx, torch.zeros_like(dx))
+
+
+def _floor_abs(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.abs(x) < 1e-30, torch.full_like(x, 1e-30), x)
+
+
+def pcg(matvec, apply_minv, rhs: torch.Tensor, iters: int, keep_going,
+        safe_pAp=_floor_abs) -> torch.Tensor:
+    """Preconditioned conjugate gradients from x = 0, the JAX solvers'
+    `lax.while_loop(i < iters & keep_going(r))` with a fixed trip count:
+    an iterate whose residual has stopped `keep_going` (a bool tensor) is
+    frozen by `torch.where`, so the result equals the early exit. The loop
+    also ends on the host once the test has turned false, read every 10th
+    iteration on a card (a device sync) and every iteration on the CPU;
+    this cuts work and leaves the result as it is. `safe_pAp` guards the
+    step's denominator (the solvers differ there)."""
+    x = torch.zeros_like(rhs)
+    r = rhs
+    p = apply_minv(r)
+    rz = torch.sum(r * p)
+    check_every = 1 if rhs.device.type == "cpu" else 10
+    for i in range(iters):
+        go = keep_going(r)
+        if i % check_every == 0 and not bool(go):
+            break
+        Ap = matvec(p)
+        alpha = rz / safe_pAp(torch.sum(p * Ap))
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = apply_minv(r_n)
+        rz_n = torch.sum(r_n * z)
+        p_n = z + (rz_n / _floor_abs(rz)) * p
+        x, r, p, rz = (torch.where(go, a, b) for a, b in ((x_n, x), (r_n, r), (p_n, p),
+                                                           (rz_n, rz)))
+    return x

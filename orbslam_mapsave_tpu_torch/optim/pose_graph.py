@@ -1,14 +1,15 @@
 """Sim3 pose-graph (essential graph) optimization for loop correction.
 
-Port of `orbslam_mapsave_tpu/optim/pose_graph.py`, the dense solver
+Port of `orbslam_mapsave_tpu/optim/pose_graph.py`
 (`Optimizer::OptimizeEssentialGraph`, `src/Optimizer.cc:781-1062`):
 vertices are per-keyframe Sim3 world->camera transforms, edges carry a
 measured relative Sim3, the residual sim3_log(S_meas (exp(xi_i) S_i
 (exp(xi_j) S_j)^-1)^-1) is linearized by forward-mode differentiation at
-xi = 0 for all edges at once, and the (7K,7K) normal system is assembled by
-incidence contractions and solved by Cholesky; 20 damped Gauss-Newton
-iterations. The matrix-free CG form (`solver="cg"`, reached past K = 384)
-waits for the scale slice.
+xi = 0 for all edges at once; 20 damped Gauss-Newton iterations. Two
+solvers: `"dense"` assembles the (7K,7K) normal system by incidence
+contractions and solves it by Cholesky; `"cg"` (the loop closer's past
+K = 384) keeps per-edge 7x7 blocks and runs block-Jacobi preconditioned
+CG with its matrix-vector products through the (E,K) incidence.
 """
 
 from __future__ import annotations
@@ -68,49 +69,41 @@ def _residuals_only(S, prob: PoseGraphProblem, oh_i, oh_j):
                           prob.edge_meas, z7, z7)
 
 
-def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str = "dense"):
+def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str = "dense",
+                        cg_iters: int = 100, cg_tol: float = 1e-6):
     """Damped Gauss-Newton over the pose graph. Returns (S_opt (K,4,4),
     final chi2). A failed factorization gives a zero step, as the JAX
-    version's NaN -> 0 rule does."""
-    if solver != "dense":
-        raise NotImplementedError(
-            "the matrix-free CG pose graph (solver=\"cg\", K > 384) is not "
-            "ported to orbslam_mapsave_tpu_torch yet")
+    version's NaN -> 0 rule does. `cg_iters` / `cg_tol` bound the inner
+    solve of solver="cg"."""
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"unknown pose-graph solver {solver!r}")
     K = prob.S_init.shape[0]
-    dev = prob.S_init.device
     free = prob.valid & ~prob.fixed
     oh_i, oh_j = _edge_onehots(prob, K)
     w = torch.where(prob.edge_valid, prob.edge_weight, torch.zeros_like(prob.edge_weight))
-    mask = torch.repeat_interleave(free, 7)
-    one = torch.ones((), dtype=prob.S_init.dtype, device=dev)
 
     def chi2_of(S):
         r = _residuals_only(S, prob, oh_i, oh_j)
         return torch.sum(w * torch.sum(r * r, -1))
 
     S = prob.S_init
-    lam = torch.tensor(1e-6, dtype=S.dtype, device=dev)
+    lam = torch.tensor(1e-6, dtype=S.dtype, device=S.device)
     for _ in range(n_iters):
         r, Ji, Jj = _linearize(S, prob, oh_i, oh_j)
+        if solver == "cg":  # fixed endpoints: zero Jacobians, identity rows
+            free_f = free.to(S.dtype)
+            Ji = Ji * (oh_i @ free_f)[:, None, None]
+            Jj = Jj * (oh_j @ free_f)[:, None, None]
         cur = torch.sum(w * torch.sum(r * r, -1))
-        Hii = torch.einsum("eri,e,erj->eij", Ji, w, Ji)
-        Hjj = torch.einsum("eri,e,erj->eij", Jj, w, Jj)
-        Hij = torch.einsum("eri,e,erj->eij", Ji, w, Jj)
-        gi = -torch.einsum("eri,e,er->ei", Ji, w, r)
-        gj = -torch.einsum("eri,e,er->ei", Jj, w, r)
-        H = (torch.einsum("ea,eb,eij->abij", oh_i, oh_i, Hii)
-             + torch.einsum("ea,eb,eij->abij", oh_j, oh_j, Hjj)
-             + torch.einsum("ea,eb,eij->abij", oh_i, oh_j, Hij)
-             + torch.einsum("ea,eb,eji->abij", oh_i, oh_j, Hij).transpose(0, 1))
-        g = oh_i.T @ gi + oh_j.T @ gj
-        Hf = H.transpose(1, 2).reshape(K * 7, K * 7)
-        Hf = torch.where(mask[:, None] & mask[None, :], Hf, torch.zeros_like(Hf))
-        Hf = Hf + torch.diag(torch.where(mask, lam, one))
-        gf = torch.where(mask, g.reshape(-1), torch.zeros_like(g.reshape(-1)))
-        L, info = torch.linalg.cholesky_ex(Hf)
-        dx = torch.cholesky_solve(gf[:, None], L)[:, 0].reshape(K, 7)
-        dx = torch.where(torch.isfinite(dx) & (info == 0) & free[:, None], dx,
-                         torch.zeros_like(dx))
+        blocks = (torch.einsum("eri,e,erj->eij", Ji, w, Ji),  # Hii
+                  torch.einsum("eri,e,erj->eij", Jj, w, Jj),  # Hjj
+                  torch.einsum("eri,e,erj->eij", Ji, w, Jj),  # Hij
+                  -torch.einsum("eri,e,er->ei", Ji, w, r),  # gi
+                  -torch.einsum("eri,e,er->ei", Jj, w, r))  # gj
+        if solver == "cg":
+            dx = _cg_step(free, oh_i, oh_j, blocks, lam, cg_iters, cg_tol)
+        else:
+            dx = _dense_step(free, oh_i, oh_j, blocks, lam)
         S_new = se3.sim3_exp(dx) @ S
         accept = chi2_of(S_new) < cur
         S = torch.where(accept, S_new, S)
@@ -118,6 +111,58 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str =
     # chained f32 sim3_exp products drift off scale x SO(3)
     S = se3.sim3_orthonormalize(S)
     return S, chi2_of(S)
+
+
+def _dense_step(free, oh_i, oh_j, blocks, lam) -> torch.Tensor:
+    """The step (K,7) from the (7K,7K) normal system assembled by incidence
+    contractions and solved by Cholesky; fixed rows are the identity."""
+    Hii, Hjj, Hij, gi, gj = blocks
+    K = free.shape[0]
+    mask = torch.repeat_interleave(free, 7)
+    H = (torch.einsum("ea,eb,eij->abij", oh_i, oh_i, Hii)
+         + torch.einsum("ea,eb,eij->abij", oh_j, oh_j, Hjj)
+         + torch.einsum("ea,eb,eij->abij", oh_i, oh_j, Hij)
+         + torch.einsum("ea,eb,eji->abij", oh_i, oh_j, Hij).transpose(0, 1))
+    g = oh_i.T @ gi + oh_j.T @ gj
+    Hf = H.transpose(1, 2).reshape(K * 7, K * 7)
+    Hf = torch.where(mask[:, None] & mask[None, :], Hf, torch.zeros_like(Hf))
+    Hf = Hf + torch.diag(torch.where(mask, lam, torch.ones_like(lam)))
+    gf = torch.where(mask, g.reshape(-1), torch.zeros_like(g.reshape(-1)))
+    L, info = torch.linalg.cholesky_ex(Hf)
+    dx = torch.cholesky_solve(gf[:, None], L)[:, 0].reshape(K, 7)
+    return torch.where(torch.isfinite(dx) & (info == 0) & free[:, None], dx,
+                       torch.zeros_like(dx))
+
+
+def _cg_step(free, oh_i, oh_j, blocks, lam, cg_iters: int, cg_tol: float) -> torch.Tensor:
+    """The step (K,7) by matrix-free PCG (JAX `_optimize_pose_graph_cg`):
+    per-edge 7x7 blocks, endpoints selected and reduced through the (E,K)
+    incidence, the damped block diagonal as block-Jacobi preconditioner,
+    stopping at |r| / |g| <= cg_tol; fixed rows are the identity."""
+    Hii, Hjj, Hij, gi, gj = blocks
+    E, K = oh_i.shape
+    eye7 = torch.eye(7, dtype=Hii.dtype, device=Hii.device)
+    g = oh_i.T @ gi + oh_j.T @ gj
+    g = torch.where(free[:, None], g, torch.zeros_like(g))
+    D = (oh_i.T @ Hii.reshape(E, 49) + oh_j.T @ Hjj.reshape(E, 49)).reshape(K, 7, 7)
+    D = torch.where(free[:, None, None], D + eye7 * lam, eye7)
+    Minv, info = torch.linalg.inv_ex(D)
+    Minv = torch.where(torch.isfinite(Minv) & (info == 0)[:, None, None], Minv, eye7)
+    HijT = Hij.transpose(1, 2)
+
+    def matvec(x):  # (K,7); lam on free rows, the identity on fixed rows
+        x = torch.where(free[:, None], x, torch.zeros_like(x))
+        xi, xj = oh_i @ x, oh_j @ x
+        yi = (Hii @ xi[..., None] + Hij @ xj[..., None])[..., 0]
+        yj = (HijT @ xi[..., None] + Hjj @ xj[..., None])[..., 0]
+        y = oh_i.T @ yi + oh_j.T @ yj + lam * x
+        return torch.where(free[:, None], y, x)
+
+    gn = torch.sqrt(torch.sum(g * g)) + 1e-30
+    dx = lm_mod.pcg(matvec, lambda v: (Minv @ v[..., None])[..., 0], g, cg_iters,
+                    lambda rr: torch.sqrt(torch.sum(rr * rr)) / gn > cg_tol,
+                    safe_pAp=lambda d: torch.clamp(d, min=1e-30))
+    return torch.where(torch.isfinite(dx) & free[:, None], dx, torch.zeros_like(dx))
 
 
 def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:

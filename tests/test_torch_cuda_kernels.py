@@ -70,6 +70,24 @@ def test_kernel_matches_plain_all_mono(dev, B):
         assert np.abs(pose_k[b].cpu().numpy() - probs[b]["T_true"]).max() < 5e-3
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_kernel_matches_plain_all_stereo(dev, B):
+    """Every edge given its right-image coordinate, as on a stereo frame:
+    the third residual row and its system terms on each edge whose ur lies
+    on the image (ur >= 0, ~94% here; the rest fall off its left edge and
+    count as mono, as in the reference)."""
+    probs = [make_problem(2048, seed=7 + b, stereo=1.0) for b in range(B)]
+    assert all((p["ur"] >= 0).mean() > 0.9 for p in probs)
+    obs = batch_obs(probs, dev)
+    pose0 = _eye(dev, B)
+    pose_k, inl_k, n_k = pose_opt_cuda.pose_optimization_cuda(CAM, pose0, obs)
+    for b in range(B):
+        p_ref, inl_ref, n_ref = _plain(obs, pose0, b)
+        assert (pose_k[b] - p_ref).abs().max().item() <= TOL_POSE
+        assert torch.equal(inl_k[b], inl_ref) and int(n_k[b]) == int(n_ref)
+        assert np.abs(pose_k[b].cpu().numpy() - probs[b]["T_true"]).max() < 5e-3
+
+
 def test_all_invalid_returns_input_pose(dev):
     p = make_problem(1024, seed=3)
     p["valid"][:] = False

@@ -496,3 +496,50 @@ def test_free_scale_loop():
     ess_t = tcl._essential(cor_t, QUERY, MATCH)
     _assert_same_map(interop.map_state_to_numpy(ess_t),
                      {k: np.asarray(v) for k, v in ess_j._asdict().items()})
+
+
+def _at_capacities(h: dict, K: int, P: int, N: int) -> dict:
+    """The map h copied into an empty map of K keyframe, P point and N
+    feature slots (the same live content, more padding)."""
+    big = {k: np.array(v) for k, v in jms.empty_map(K, P, N)._asdict().items()}
+    for k, v in h.items():
+        if np.ndim(v) == 0:
+            big[k] = v
+        else:
+            big[k][tuple(slice(0, d) for d in np.shape(v))] = v
+    return big
+
+
+def test_essential_graph_at_default_capacities():
+    """The corrected map of test_essential_graph at SystemConfig's default
+    capacities (512 keyframes, 65,536 points, 2,048 features): past
+    K = 384 both loop closers run the CG essential graph, and the results
+    agree as in test_essential_graph. The edge buffer has dead lanes, so
+    the CG solve, like the dense one, returns its input (ROADMAP queue 3;
+    test_torch_pose_graph.py::test_cg_matches_jax[dead_lanes])."""
+    from orbslam_mapsave_tpu_torch import config as tcfg
+
+    cfg = tcfg.SystemConfig()
+    jcl, tcl = _closers()
+    _, _, ot = _corrected()
+    h = _at_capacities(ot, cfg.max_keyframes, cfg.max_points, cfg.max_keypoints)
+    assert h["kf_pose"].shape[0] == 512 > 384
+    if jcl._essential_device is None:
+        jcl._essential_device = jcl._build_essential_device()
+    oj = jcl._essential_device(_jstate(h), jnp.asarray(QUERY, jnp.int32),
+                               jnp.asarray(MATCH, jnp.int32))
+    solvers = []
+    solve = tlc.pose_graph.optimize_pose_graph
+
+    def recorded(prob, *a, **k):
+        solvers.append(k.get("solver"))
+        return solve(prob, *a, **k)
+
+    tlc.pose_graph.optimize_pose_graph = recorded
+    try:
+        out = tcl._essential(interop.map_state_from_numpy(h), QUERY, MATCH)
+    finally:
+        tlc.pose_graph.optimize_pose_graph = solve
+    assert solvers == ["cg"]
+    _assert_same_map(interop.map_state_to_numpy(out),
+                     {k: np.asarray(v) for k, v in oj._asdict().items()})

@@ -3,8 +3,8 @@ where both are unimportable, import every module of
 orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU, without a
 vocabulary and with a small trained one and loop closing on, then save that
 map and relocalize one frame against it in reuse mode, and track a few
-monocular frames through the two-view bootstrap; and no source line of the
-port or of chip_smoke.py imports either."""
+monocular frames through the two-view bootstrap, and one stereo pair; and
+no source line of the port or of chip_smoke.py imports either."""
 
 import subprocess
 import sys
@@ -63,6 +63,12 @@ for i in range(3):
 lost = [l for _, _, l in mono.tracker.trajectory]
 assert lost[0] and not any(lost[1:]) and mono.n_keyframes >= 2 and mono.n_points > 100
 assert not mono.loop_closer.fix_scale
+st = system.SLAMSystem(cfg, system.Sensor.STEREO, enable_mapping=False, device="cpu")
+T = np.eye(4)
+T[0, 3] = 0.08
+right = synthetic.BoxRoom(seed=5).render(K, synthetic.orbit_trajectory(2)[0] @ T, W, H)[0]
+st.track_stereo(gray.astype(np.uint8), right.astype(np.uint8), 0.0)
+assert st.n_keyframes == 1 and st.n_points > 100
 assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names), slam.n_points)

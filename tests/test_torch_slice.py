@@ -289,15 +289,15 @@ def test_device_defaults_to_the_card(monkeypatch):
     assert ts.map.pt_pos.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(sensor="STEREO")])
-def test_unported_options_raise(kw):
-    """Stereo input waits for its slice (monocular input, a vocabulary, loop
-    closing and map reuse are ported)."""
-    cfg = tcfg.SystemConfig()
-    kw = dict(kw)
-    sensor = tsys.Sensor[kw.pop("sensor", "RGBD")]
-    with pytest.raises(NotImplementedError):
-        tsys.SLAMSystem(cfg, sensor, device="cpu", **kw)
+def test_stereo_system_builds_as_jax():
+    """A STEREO system builds (stereo was the last sensor to port) with the
+    JAX package's tracker settings: motion-model window 7, local search
+    threshold 1 (JAX `system.py:76-81`, `Tracking.cc:1127,1445-1450`)."""
+    ts = tsys.SLAMSystem(tcfg.SystemConfig(), tsys.Sensor.STEREO, device="cpu")
+    js = jsys.SLAMSystem(jcfg.SystemConfig(), jsys.Sensor.STEREO)
+    assert ts.tracker.cfg.motion_th == js.tracker.cfg.motion_th == 7.0
+    assert ts.tracker.cfg.local_th == js.tracker.cfg.local_th == 1.0
+    assert not ts.tracker.cfg.is_mono and ts.loop_closer is None
 
 
 @pytest.fixture(scope="module")

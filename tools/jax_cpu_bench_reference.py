@@ -3,7 +3,8 @@
 run JAX).
 
     JAX_PLATFORMS=cpu python tools/jax_cpu_bench_reference.py \
-        [--no-mapping | --loop | --kidnap | --reuse | --mono]
+        [--no-mapping | --loop | --kidnap | --reuse | --mono | --stereo]
+        [--default-caps]
 
 Runs bench.py's sequence and configuration (640x480, 2000 ORB features,
 circle_trajectory(240, radius=0.55, revs=1.30) in BoxRoom(2.0, seed=11),
@@ -54,6 +55,21 @@ free), the loop events, the global-BA jobs applied and aborted, and the BA
 lanes dropped (in the per-frame step and in the bootstrap pair's mapping
 passes).
 
+`--stereo` runs the stereo workload of `chip_smoke.py`: the same 240
+frames as u8 left images, each with a right image rendered from the pose
+moved +0.08 m along the camera x axis (as `io/synthetic.write_stereo_sequence`
+renders a rig; bf = 520 x 0.08 = 41.6, the bench camera's own), through
+`SLAMSystem(cfg, Sensor.STEREO)` with bench.py's vocabulary and loop
+closing on, one pass from a fresh system. It prints the lost frames,
+keyframes, points, keyframe ATE, the loop events, the global-BA jobs
+applied and aborted with the solver each ran, the essential graph's solver
+and the BA lanes dropped.
+
+`--default-caps` runs `--loop` or `--stereo` at `SystemConfig`'s default
+capacities (512 keyframes, 65,536 points, 2,048 keypoints), which select
+the CG essential graph and the `pcg_dual` global-BA job, instead of
+bench.py's 64 keyframes and 32,768 points.
+
 All of them read the tracker's outcomes every frame (`fetch_every = 1`).
 """
 
@@ -80,15 +96,84 @@ from orbslam_mapsave_tpu.pipeline import tracking as tracking_mod  # noqa: E402
 
 N, W, H = 240, 640, 480
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
+BASELINE = 0.08  # m: bf = 520 x 0.08, the bench camera's
 
 
-def _config(mod=cfg_mod):
+def _config(mod=cfg_mod, default_caps: bool = False):
     cfg = mod.SystemConfig()
     cfg.camera = mod.CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, width=W,
-                                  height=H, bf=520.0 * 0.08, th_depth=50.0, fps=30)
+                                  height=H, bf=520.0 * BASELINE, th_depth=50.0, fps=30)
     cfg.orb = mod.ORBConfig(n_features=2000, n_levels=4, scale_factor=1.5)
-    cfg.max_keypoints, cfg.max_keyframes, cfg.max_points = 2048, 64, 32768
+    if not default_caps:
+        cfg.max_keypoints, cfg.max_keyframes, cfg.max_points = 2048, 64, 32768
     return cfg
+
+
+def right_twc(Twc: np.ndarray) -> np.ndarray:
+    """The right camera of the rig: Twc moved BASELINE along its own x axis
+    (`io/synthetic.write_stereo_sequence`)."""
+    out = Twc.copy()
+    out[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([BASELINE, 0.0, 0.0])
+    return out
+
+
+def _gba_bookkeeping(gba_mod, pose_graph_mod) -> dict:
+    """Count the global-BA jobs applied and aborted, the solver each job
+    picked and the essential graph's solver (recorded when its program is
+    traced), by wrapping the JAX classes and functions in place."""
+    rec = {"applied": 0, "aborted": 0, "gba_solvers": [], "essential_solvers": []}
+    init, apply, abort = gba_mod.GBAJob.__init__, gba_mod.GBAJob.apply, gba_mod.GBAJob.abort
+    solve = pose_graph_mod.optimize_pose_graph
+
+    def counted_init(job, *a, **k):
+        init(job, *a, **k)
+        rec["gba_solvers"].append(getattr(job, "_solver", "multi-device"))
+
+    def counted_apply(job, state):
+        rec["applied"] += not job.aborted
+        return apply(job, state)
+
+    def counted_abort(job):
+        rec["aborted"] += not job.aborted
+        return abort(job)
+
+    def recorded_solve(prob, *a, **k):
+        rec["essential_solvers"].append(k.get("solver", "dense"))
+        return solve(prob, *a, **k)
+
+    gba_mod.GBAJob.__init__, gba_mod.GBAJob.apply = counted_init, counted_apply
+    gba_mod.GBAJob.abort = counted_abort
+    pose_graph_mod.optimize_pose_graph = recorded_solve
+    return rec
+
+
+def _stereo(cfg, voc, frames, poses, stamps) -> dict:
+    from orbslam_mapsave_tpu.optim import pose_graph
+    from orbslam_mapsave_tpu.pipeline import gba as gba_mod
+
+    rec = _gba_bookkeeping(gba_mod, pose_graph)
+    slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.STEREO, vocabulary=voc)
+    slam.tracker.fetch_every = 1
+    for (left, right), t in zip(frames, stamps):
+        slam.track_stereo(left, right, t)
+        slam.tracker.flush()
+    slam.flush_gba()
+    traj = slam.tracker.trajectory
+    valid = np.asarray(slam.map.kf_valid)
+    fid = np.asarray(slam.map.kf_frame_id)
+    map_dropped = slam.mapper.ba_lane_stats()[0] if slam.mapper is not None else 0
+    return dict(
+        caps=[cfg.max_keyframes, cfg.max_points, cfg.max_keypoints],
+        motion_th=slam.tracker.cfg.motion_th, local_th=slam.tracker.cfg.local_th,
+        lost_frames=[j for j, (_, _, l) in enumerate(traj) if l],
+        keyframes=slam.n_keyframes, points=slam.n_points,
+        kf_ate_m=_kf_ate(slam, stamps, poses), kf_frame_ids=fid[valid].tolist(),
+        loops=len(slam.loop_closer.events),
+        events=[dict(query_frame=int(fid[e.query_kf]), match_frame=int(fid[e.match_kf]),
+                     inliers=e.n_inliers) for e in slam.loop_closer.events],
+        gba_applied=rec["applied"], gba_aborted=rec["aborted"],
+        gba_solvers=rec["gba_solvers"], essential_solvers=rec["essential_solvers"],
+        ba_lanes_dropped=slam.tracker.ba_lanes_dropped + map_dropped)
 
 
 def _descriptors(cfg, frames, stamps) -> np.ndarray:
@@ -301,6 +386,11 @@ def main():
     ap.add_argument("--mono", action="store_true",
                     help="tools/bench_mono.py's workload: the image alone, monocular, "
                          "with the vocabulary and loop closing")
+    ap.add_argument("--stereo", action="store_true",
+                    help="the stereo workload: left and right u8 images, SLAMSystem "
+                         "(cfg, STEREO), the vocabulary and loop closing")
+    ap.add_argument("--default-caps", action="store_true",
+                    help="with --loop or --stereo: SystemConfig's default capacities")
     ap.add_argument("--trace", action="store_true",
                     help="with --kidnap: print each loop detection and Sim3 read")
     ap.add_argument("--port", action="store_true",
@@ -313,7 +403,7 @@ def main():
     K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
     poses = synthetic.circle_trajectory(N, radius=0.55, revs=1.30)
     room = synthetic.BoxRoom(half_size=2.0, seed=11)
-    cfg = _config()
+    cfg = _config(default_caps=args.default_caps)
     stamps = 1000.0 + np.arange(N) / 30.0
     t0 = time.time()
     frames = []
@@ -321,8 +411,15 @@ def main():
         gray, depth = room.render(K, poses[i], W, H)
         frames.append((np.clip(gray, 0, 255).astype(np.uint8).astype(np.float32),
                        depth.astype(np.float16).astype(np.float32)))
-    with_voc = args.loop or args.kidnap or args.reuse or args.mono
+    with_voc = args.loop or args.kidnap or args.reuse or args.mono or args.stereo
     voc = _vocabulary(cfg, frames, stamps) if with_voc else None
+    if args.stereo:
+        pairs = [(f[0], np.clip(room.render(K, right_twc(poses[i]), W, H)[0], 0, 255)
+                  .astype(np.uint8).astype(np.float32)) for i, f in enumerate(frames)]
+        res = _stereo(cfg, voc, pairs, poses, stamps)
+        print(json.dumps(dict(mode="stereo", n_words=voc.n_words, **res,
+                              seconds=time.time() - t0)))
+        return
     if args.mono:
         res = _mono(cfg, voc, frames, poses, stamps)
         print(json.dumps(dict(mode="mono", n_words=voc.n_words, **res,
@@ -363,8 +460,13 @@ def main():
     slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc,
                                  enable_loop_closing=args.loop,
                                  enable_mapping=not args.no_mapping)
+    rec = None
     if args.loop:
         slam.tracker.fetch_every = args.fetch_every
+        from orbslam_mapsave_tpu.optim import pose_graph
+        from orbslam_mapsave_tpu.pipeline import gba as gba_mod
+
+        rec = _gba_bookkeeping(gba_mod, pose_graph)
     for i in range(N):
         slam.track_rgbd(frames[i][0], frames[i][1], stamps[i])
         if not args.loop:
@@ -378,6 +480,9 @@ def main():
         fid = np.asarray(slam.map.kf_frame_id)
         extra = dict(
             n_words=voc.n_words, fetch_every=args.fetch_every,
+            caps=[cfg.max_keyframes, cfg.max_points, cfg.max_keypoints],
+            gba_applied=rec["applied"], gba_aborted=rec["aborted"],
+            gba_solvers=rec["gba_solvers"], essential_solvers=rec["essential_solvers"],
             loops=len(slam.loop_closer.events),
             events=[dict(query_kf=e.query_kf, match_kf=e.match_kf,
                          query_frame=int(fid[e.query_kf]), match_frame=int(fid[e.match_kf]),
