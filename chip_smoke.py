@@ -122,6 +122,26 @@ no result):
               on a TUM copy of 60 bench frames (needs Pillow to read PNGs),
               `--sensor mono` on the same images, and `--sensor stereo` on a
               KITTI-layout copy of them.
+    apps    — the application layer on the card, after `cli` and on its TUM
+              copy: PoseNet trained from the stick-figure renderer
+              (96x96, width 32, 220 steps of 16) to a mean joint error
+              under 8 px; PoseNet at full width (64) on the reference's
+              176x320 input, the card's forward against the CPU's (same
+              weights and dtypes: heatmaps 0.05, joints 0.5 px, confidence
+              1e-2) and timed (CUDA events, median of 50); the gait chain on
+              the trained backbone (OpDetector: Kalman, 3D lift at 2 m within
+              0.3 m, the mask over the hip, finite gait angles) and the UDP
+              robot's command sent and received over 127.0.0.1; human-masked
+              ORB on a 640x480 bench frame (no valid keypoint inside the mask
+              at its level's resize, every keypoint the unmasked build also
+              has keeps its descriptor); `run_slam` without and with
+              `--viewer-dir --html-view --html-live 5` (>= 55 of 60 frames
+              tracked, the map embedded in the page, the live page rewritten,
+              one pose-LM launch per pose optimization, the PNGs where
+              matplotlib and Pillow import); `bin_vocabulary --train` on the
+              card and .bin -> .txt -> .bin; `NativeTUMDataset` against
+              `TUMDataset`; `change_calibration` after 20 frames, the next 20
+              tracked; ArUco where cv2.aruco imports.
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
@@ -1733,6 +1753,366 @@ def phase_cli(dev, seq, voc, map_path: Path, tmp: Path) -> dict:
     return res
 
 
+APPS_TRAIN = dict(height=96, width=96, steps=220, batch=16, net_width=32, seed=0)
+APPS_JOINT_ERR_PX = 8.0  # mean joint error of the trained net (tests/test_pose_net.py)
+POSE_NET_INPUT = (176, 320)  # the reference's OpenPose netInputSize 320x176
+POSE_NET_HM_TOL = 0.05  # card vs CPU forward (bf16 convs), tests/test_torch_pose_net.py
+POSE_NET_JOINT_TOL = 0.5
+POSE_NET_CONF_TOL = 1e-2
+APPS_MIN_TRACKED = 55  # of CLI_FRAMES, run_slam with the viewer
+CALIB_FRAMES = 20  # frames tracked before and after change_calibration
+
+
+def _level_masked(spec, mask: np.ndarray, xy: np.ndarray, octave: np.ndarray) -> np.ndarray:
+    """Whether each keypoint's level pixel lies in the masked (zero) region
+    of the mask resized to its level as orb.extract resizes it."""
+    from orbslam_mapsave_tpu_torch.ops import orb
+
+    out = np.zeros(len(xy), bool)
+    for lvl, ls in enumerate(spec.levels):
+        m = orb.resize_mask_nearest(torch.from_numpy(mask), ls.height, ls.width).numpy()
+        on = octave == lvl
+        lx = np.round(xy[on, 0] / ls.scale).astype(int)
+        ly = np.round(xy[on, 1] / ls.scale).astype(int)
+        out[on] = m[ly, lx] <= 0
+    return out
+
+
+def _apps_pose_net(dev) -> tuple[dict, object]:
+    """PoseNet trained on the card as tests/test_pose_net.py trains it, and
+    the full-width net (64) at the reference's input size, card against CPU."""
+    from orbslam_mapsave_tpu_torch.models import pose_net, pose_synth
+
+    render_s = 0.0
+    render = pose_net.render_batch
+
+    def timed_render(*a):  # the host's share: the stick figures of each batch
+        nonlocal render_s
+        t = time.perf_counter()
+        out = render(*a)
+        render_s += time.perf_counter() - t
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _patched([(pose_net, "render_batch", timed_render)]):
+        net = pose_net.train_on_synthetic(**APPS_TRAIN, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    imgs, joints = pose_synth.render_batch(np.random.default_rng(123), 8, 96, 96)
+    errs = [np.linalg.norm(pose_net.infer(net, torch.from_numpy(imgs[i]).to(dev)).cpu().numpy()
+                           [:, :2] - joints[i], axis=-1) for i in range(8)]
+    res = dict(train_s=train_s, train_render_s=render_s, train_steps=APPS_TRAIN["steps"],
+               mean_joint_err_px=float(np.mean(errs)))
+
+    h, w = POSE_NET_INPUT
+    full = pose_net.init_params(pose_net.PoseNet(64), torch.Generator().manual_seed(0))
+    img, _ = pose_synth.render_stick_figure(np.random.default_rng(5), h, w)
+    gray = torch.from_numpy(img)
+    with torch.no_grad():
+        hm_cpu = full(gray[None, None] / 255.0)[0]
+        kp_cpu = pose_net.decode_heatmaps(hm_cpu)
+        full = full.to(dev)
+        gray_d = gray.to(dev)
+        hm_dev = full(gray_d[None, None] / 255.0)[0].cpu()
+        kp_dev = pose_net.infer(full, gray_d).cpu()
+    res.update(full_width=64, input=[h, w],
+               full_hm_max_abs=float((hm_dev - hm_cpu).abs().max()),
+               full_joint_max_px=float((kp_dev[:, :2] - kp_cpu[:, :2]).abs().max()),
+               full_conf_max_abs=float((kp_dev[:, 2] - kp_cpu[:, 2]).abs().max()),
+               full_forward_ms=_time_ms(lambda: pose_net.infer(full, gray_d)))
+    log("[apps] pose net: " + json.dumps(res))
+    if not res["mean_joint_err_px"] < APPS_JOINT_ERR_PX:
+        raise AssertionError(f"trained PoseNet: mean joint error {res['mean_joint_err_px']} px")
+    if (res["full_hm_max_abs"] > POSE_NET_HM_TOL or res["full_joint_max_px"] > POSE_NET_JOINT_TOL
+            or res["full_conf_max_abs"] > POSE_NET_CONF_TOL):
+        raise AssertionError(f"PoseNet(64) card forward vs CPU: {res}")
+    return res, net
+
+
+def _apps_gait(net) -> dict:
+    """The gait chain on the trained backbone (tests/test_pose_net.py): the
+    OpDetector's Kalman filters, its 3D lift at 2 m and mask; then the UDP
+    robot sends the hip joint's command over 127.0.0.1 and receives it."""
+    import socket
+
+    from orbslam_mapsave_tpu_torch import config as cfg_mod
+    from orbslam_mapsave_tpu_torch.apps import human_pose, udp_robot
+    from orbslam_mapsave_tpu_torch.models import pose_net, pose_synth
+
+    det = human_pose.OpDetector(backbone=pose_net.make_backbone(net), fx=100.0, fy=100.0,
+                                cx=48.0, cy=48.0, mask_radius=8)
+    img, _ = pose_synth.render_stick_figure(np.random.default_rng(7), 96, 96)
+    depth = np.full((96, 96), 2.0, np.float32)
+    mask = None
+    for _ in range(3):  # let the Kalman filters settle
+        mask = det.run_frame(img, depth)
+    if mask is None:
+        raise AssertionError("OpDetector found no person")
+    hip = det.joints_3d[human_pose.HIP_C]
+    hy, hx = int(det.joints_2d[human_pose.HIP_C, 1]), int(det.joints_2d[human_pose.HIP_C, 0])
+    angles = det.gait_angles()
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    robot = udp_robot.UDPRobot(cfg_mod.UDPConfig(ip_client="127.0.0.1", port_in=port,
+                                                 port_out=port, send_interval_ms=10,
+                                                 receiver_interval_ms=50))
+    robot.update_hip(hip)
+    robot.start()
+    try:
+        t0 = time.time()
+        while not robot.control_command and time.time() - t0 < 10:
+            time.sleep(0.01)
+    finally:
+        robot.stop()
+    res = dict(hip_xyz=[float(v) for v in hip], hip_masked=bool(mask[hy, hx] == 0.0),
+               gait_angles=angles, udp_sent=robot.current_command(),
+               udp_received=robot.control_command[:3])
+    log("[apps] gait chain: " + json.dumps(res))
+    if not abs(hip[2] - 2.0) < 0.3:
+        raise AssertionError(f"hip joint depth {hip[2]} m, not within 0.3 m of 2 m")
+    if not res["hip_masked"] or not all(np.isfinite(v) for v in angles.values()):
+        raise AssertionError(f"gait chain: {res}")
+    if not robot.control_command or robot.control_command[0] != res["udp_sent"]:
+        raise AssertionError(f"UDP command not received: {res}")
+    return res
+
+
+def _apps_masked_orb(dev, seq) -> dict:
+    """Human-masked ORB at full size: the mask OpDetector.render_mask draws
+    around a 640x480 stick figure's joints, FrameBuilder.build on a bench
+    frame on the card with and without it."""
+    from orbslam_mapsave_tpu_torch.apps import human_pose
+    from orbslam_mapsave_tpu_torch.geometry import projection
+    from orbslam_mapsave_tpu_torch.models import pose_synth
+    from orbslam_mapsave_tpu_torch.ops import orb
+    from orbslam_mapsave_tpu_torch.pipeline import frame
+
+    _, joints = pose_synth.render_stick_figure(np.random.default_rng(11), H, W)
+    det = human_pose.OpDetector()
+    det.joints_2d = joints.astype(np.float64)
+    det.joints_conf = np.ones(human_pose.N_JOINTS)
+    mask = det.render_mask((H, W))
+    cam = projection.Camera.create(520.0, 520.0, W / 2, H / 2, bf=520.0 * 0.08, width=W,
+                                   height=H)
+    spec = orb.ORBSpec.create(H, W, n_features=2000, max_kp=2048)
+    builder = frame.FrameBuilder(cam, spec, dev)
+    image, depth = seq[1][10]
+    out = []
+    for m in (None, mask):
+        fr = builder.build(image, 0.0, depth, m)
+        v = fr.valid.cpu().numpy()
+        xy, octv = fr.kp_xy_raw.cpu().numpy()[v], fr.kp_octave.cpu().numpy()[v]
+        out.append((xy, octv, fr.desc.cpu().numpy()[v]))
+    (xy0, oc0, d0), (xy1, oc1, d1) = out
+    inside0 = _level_masked(spec, mask, xy0, oc0)
+    inside1 = _level_masked(spec, mask, xy1, oc1)
+    plain = {(float(x), float(y), int(o)): bytes(d) for (x, y), o, d in zip(xy0, oc0, d0)}
+    kept = [(plain[k], bytes(d)) for k, d in
+            zip(((float(x), float(y), int(o)) for (x, y), o in zip(xy1, oc1)), d1) if k in plain]
+    res = dict(mask_share=float((mask == 0).mean()), keypoints_unmasked=len(xy0),
+               keypoints_masked=len(xy1), removed_by_mask=int(inside0.sum()),
+               inside_after=int(inside1.sum()), kept_outside=len(kept),
+               kept_descriptor_changed=sum(a != b for a, b in kept))
+    log("[apps] masked ORB: " + json.dumps(res))
+    if res["inside_after"] or res["removed_by_mask"] == 0:
+        raise AssertionError(f"human-masked ORB: {res}")
+    if res["kept_descriptor_changed"] or not kept:
+        raise AssertionError(f"keypoints outside the mask changed descriptors: {res}")
+    return res
+
+
+def _apps_run_slam(tmp: Path, base: list) -> dict:
+    """run_slam over the TUM copy on the card without, then with, the
+    viewer flags: frames tracked, the HTML view, the live page rewrites,
+    the PNG snapshots, one pose-LM launch per pose optimization."""
+    import importlib.util
+
+    from orbslam_mapsave_tpu_torch.apps import run_slam
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.pipeline import system as system_mod
+    from orbslam_mapsave_tpu_torch.viz import html_viewer, viewer as viewer_mod
+
+    systems, viewers, writes = [], [], []
+    calls = 0
+    dispatch, export = pose_opt.pose_optimization, html_viewer.export_html
+    init, vinit = system_mod.SLAMSystem.__init__, viewer_mod.Viewer.__init__
+
+    def counted(*args):
+        nonlocal calls
+        calls += 1
+        return dispatch(*args)
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        systems.append(self)
+
+    def keep_viewer(self, *a, **k):
+        vinit(self, *a, **k)
+        viewers.append(self)
+
+    def recorded(state, path, **k):
+        writes.append(bool(k.get("live_refresh")))
+        return export(state, path, **k)
+
+    # the PNG snapshots need matplotlib and Pillow (host libraries, as in JAX)
+    missing = [m for m in ("matplotlib", "PIL") if importlib.util.find_spec(m) is None]
+    have_png = not missing
+    if missing:
+        log(f"[apps] viewer PNGs not written or checked: this machine lacks {missing}; "
+            "run_slam runs with --html-view and --html-live only")
+    flags = ["--html-view", str(tmp / "v.html"), "--html-live", "5"]
+    if have_png:
+        flags += ["--viewer-dir", str(tmp / "viewer")]
+    with _patched([(system_mod.SLAMSystem, "__init__", keep),
+                   (viewer_mod.Viewer, "__init__", keep_viewer),
+                   (html_viewer, "export_html", recorded)]):
+        t0 = time.perf_counter()
+        run_slam.main(base + ["--out", str(tmp / "nv.txt"), "--kf-out", str(tmp / "nvk.txt")])
+        t1 = time.perf_counter()
+        pose_opt_cuda.reset_launches()
+        with _patched([(pose_opt, "pose_optimization", counted)]):
+            run_slam.main(base + ["--out", str(tmp / "v.txt"), "--kf-out", str(tmp / "vk.txt"),
+                                  *flags])
+        launches = pose_opt_cuda.launches
+        t2 = time.perf_counter()
+    slam, viewer = systems[-1], viewers[-1]
+    lost = [lost for _, _, lost in slam.tracker.trajectory]
+    page = (tmp / "v.html").read_text()
+    pngs = sorted(p.name for p in (tmp / "viewer").iterdir()) if (tmp / "viewer").is_dir() else []
+    res = dict(device=str(slam.device), frames=len(lost), tracked_frames=lost.count(False),
+               keyframes=slam.n_keyframes, seconds_without_viewer=t1 - t0,
+               seconds_with_viewer=t2 - t1, fps_without_viewer=CLI_FRAMES / (t1 - t0),
+               fps_with_viewer=CLI_FRAMES / (t2 - t1), live_rewrites=writes.count(True),
+               live_gen=viewer._live_gen, html_bytes=len(page), pngs=len(pngs),
+               pose_optimizations=calls, launches=launches)
+    log("[apps] run_slam with the viewer: " + json.dumps(res))
+    if slam.device.type != "cuda" or res["tracked_frames"] < APPS_MIN_TRACKED:
+        raise AssertionError(f"run_slam with the viewer: {res}")
+    if "__DATA__" in page or '"pts": [[' not in page or res["live_rewrites"] < 1:
+        raise AssertionError(f"the HTML view: {res}")
+    if launches != calls or calls < 2 * (res["tracked_frames"] - 1):
+        raise AssertionError(f"{launches} pose-LM launches for {calls} pose optimizations")
+    if have_png and (len(pngs) != 2 * (CLI_FRAMES // 10)
+                     or not any(n.startswith("map_") for n in pngs)):
+        raise AssertionError(f"viewer PNGs: {pngs}")
+    return res
+
+
+def _apps_host_tools(dev, tmp: Path, data: Path) -> dict:
+    """bin_vocabulary --train on the card, .bin -> .txt -> .bin (the text
+    format's 6 decimals plus the float32 rounding of a weight up to ~10:
+    weights within 1e-6); the native TUM loader against the Python one."""
+    from orbslam_mapsave_tpu_torch.apps import bin_vocabulary
+    from orbslam_mapsave_tpu_torch.io import dataset, native_loader
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    voc = bin_vocabulary.main(["--train", str(data), str(tmp / "apps_voc.bin"),
+                               "--device", str(dev)])
+    bin_vocabulary.main([str(tmp / "apps_voc.bin"), str(tmp / "apps_voc.txt")])
+    bin_vocabulary.main([str(tmp / "apps_voc.txt"), str(tmp / "apps_voc2.bin")])
+    back = vocabulary.load(tmp / "apps_voc2.bin")
+    same = all(np.array_equal(getattr(voc, f), getattr(back, f))
+               for f in ("parent", "children", "desc", "word_id"))
+    w_err = float(np.abs(voc.weight - back.weight).max())
+    res = dict(n_words=voc.n_words, n_words_back=back.n_words, tables_equal=same,
+               weight_max_err=w_err)
+    if back.n_words != voc.n_words or not same or w_err > 1e-6:
+        raise AssertionError(f"bin_vocabulary round trip: {res}")
+    if not native_loader.available():
+        log("[apps] host tools: " + json.dumps(res))
+        log("[apps] NativeTUMDataset not checked: native/liborbtpu_io.so does not load on "
+            "this host and cannot be built (g++, libpng and zlib are needed)")
+        return res
+    py = dataset.TUMDataset(data)
+    nat = native_loader.NativeTUMDataset(data)
+    frames_ok = len(nat) == len(py)
+    for i in (0, 5, len(py) - 1):
+        t_py, g_py, d_py = py[i]
+        t_nat, g_nat, d_nat = nat[i]
+        frames_ok &= (abs(t_py - t_nat) < 1e-9 and np.allclose(g_nat, g_py, rtol=0, atol=1.0)
+                      and np.allclose(d_nat, d_py, rtol=0, atol=1e-4))
+    res.update(native_library=Path(native_loader.get_lib()._name).name,
+               native_frames=len(nat), native_equal=bool(frames_ok))
+    log("[apps] host tools: " + json.dumps(res))
+    if not frames_ok:
+        raise AssertionError(f"NativeTUMDataset differs from TUMDataset: {res}")
+    return res
+
+
+def _apps_calibration(dev, seq, tmp: Path) -> dict:
+    """change_calibration after CALIB_FRAMES tracked frames, to a camera
+    yaml written from the bench camera: the next CALIB_FRAMES frames track."""
+    from orbslam_mapsave_tpu_torch.pipeline import tracking
+
+    _, frames = seq
+    stamps = 1000.0 + np.arange(N_FRAMES) / 30.0
+    slam = _bench_system(dev, True)
+    for i in range(CALIB_FRAMES):
+        slam.track_rgbd(*frames[i], stamps[i])
+    _camera_yaml(tmp / "apps_cam.yaml")
+    slam.change_calibration(tmp / "apps_cam.yaml")
+    states = []
+    for i in range(CALIB_FRAMES, 2 * CALIB_FRAMES):
+        slam.track_rgbd(*frames[i], stamps[i])
+        states.append(slam.tracking_state)
+    res = dict(cam=[float(slam.cam.fx), float(slam.cam.cx), float(slam.cam.bf)],
+               th_depth=slam.tracker.cfg.th_depth, frames_after=len(states),
+               lost_after=sum(s != tracking.OK for s in states), keyframes=slam.n_keyframes)
+    log("[apps] change_calibration: " + json.dumps(res))
+    if res["lost_after"] or slam.tracker.builder is not slam.builder:
+        raise AssertionError(f"change_calibration: {res}")
+    return res
+
+
+def _apps_aruco(seq) -> dict:
+    """A marker from cv2.aruco pasted into a bench frame is detected with a
+    finite pose; without cv2.aruco the detector is a no-op, as in JAX."""
+    from orbslam_mapsave_tpu_torch.apps import aruco
+
+    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
+    det = aruco.ArucoDetector(K=K)
+    if not det.available:
+        log("[apps] ArUco: cv2.aruco is not installed here; the detector is a no-op, as in JAX")
+        return dict(available=False)
+    import cv2
+
+    img = seq[1][0][0].copy()
+    img[180:300, 260:380] = cv2.aruco.generateImageMarker(
+        cv2.aruco.getPredefinedDictionary(det.cfg.dictionary_id), 7, 120)
+    r = det.detect(img)
+    res = dict(available=True, ids=[] if r.ids is None else r.ids.ravel().tolist(),
+               tvec=None if r.tvecs is None else r.tvecs[0].tolist())
+    log("[apps] ArUco: " + json.dumps(res))
+    if res["ids"] != [7] or not np.isfinite(r.tvecs).all():
+        raise AssertionError(f"ArUco: {res}")
+    return res
+
+
+def phase_apps(dev, seq, tmp: Path) -> dict:
+    """The application layer on the card (after `cli`, on its TUM copy):
+    PoseNet trained and run at full width, the gait chain and the UDP
+    robot, human-masked ORB, run_slam with the viewer, bin_vocabulary, the
+    native loader, change_calibration and ArUco."""
+    t0 = time.perf_counter()
+    res, net = _apps_pose_net(dev)
+    res = dict(pose_net=res, gait=_apps_gait(net), masked_orb=_apps_masked_orb(dev, seq))
+    data = tmp / "tum"
+    if data.is_dir():
+        base = ["--dataset", str(data), "--camera-yaml", str(tmp / "cam.yaml"),
+                "--vocabulary", str(tmp / "voc.bin")]
+        res["run_slam"] = _apps_run_slam(tmp, base)
+        res["host_tools"] = _apps_host_tools(dev, tmp, data)
+    else:
+        log("[apps] run_slam, bin_vocabulary and the native loader not run: the cli phase "
+            "wrote no TUM copy (no Pillow)")
+    res["calibration"] = _apps_calibration(dev, seq, tmp)
+    res["aruco"] = _apps_aruco(seq)
+    log(f"[apps] phase passed in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def _profile_ranges(ranges: list) -> dict:
     """Each (name, fn) of `ranges` once unprofiled-range, then once inside a
     record_function range of its name, all in one torch.profiler session;
@@ -1853,6 +2233,7 @@ def main() -> int:
             kid = phase_kidnap(dev, seq, lc.voc)
             reu = phase_reuse(dev, seq, lc.voc, map_path, lres["save_ms"])
             phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
+            apps = phase_apps(dev, seq, Path(tmp))
         phase_profile(dev)
         phase_profile_map_step(mapper, captured)
         phase_profile_loop(lc, lcap, dev)
@@ -1895,7 +2276,8 @@ def main() -> int:
         "launches_batched": kid["launches_batched"] + reu["launches_batched"],
         "launches_by_path": {"loop": lres["launches"], "mono": mono["launches"],
                              "kidnap": kid["launches"], "reuse": reu["launches"],
-                             "stereo": st["launches"]},
+                             "stereo": st["launches"],
+                             "apps": apps.get("run_slam", {}).get("launches")},
         "batched_B": reu["batched_launch"]["B"],
         "batched_ms": reu["batched_launch"]["ms"],
         "batched_graph_ms": reu["batched_launch"]["graph_ms"],

@@ -11,11 +11,14 @@ for a live mono or RGB-D sensor):
     python -m orbslam_mapsave_tpu_torch.apps.run_slam ... --reuse-map map.npz
 
 Honors the master Setting.yaml cascade (`Examples/Setting.yaml`: vocabulary
-path, camera settings path, reuse-map flag and path). Runs on the CUDA card
-unless `--device` names another (`--device cpu` runs the plain PyTorch
-path). `--sensor mono` reads the TUM rgb.txt images alone; `--sensor stereo`
-reads a KITTI-layout directory (image_0/ left, image_1/ right, times.txt);
-the viewer options wait for the `viz/` slice and exit with an error.
+path, camera settings path, reuse-map flag and path, viewer flag). Runs on
+the CUDA card unless `--device` names another (`--device cpu` runs the
+plain PyTorch path). `--sensor mono` reads the TUM rgb.txt images alone;
+`--sensor stereo` reads a KITTI-layout directory (image_0/ left, image_1/
+right, times.txt). The viewer (`viz/`): `--viewer-dir DIR` (or `UseViewer:
+1`) writes a frame overlay and a map PNG every 10 frames, `--html-view
+FILE` writes an interactive HTML map view at the end, and `--html-live N`
+rewrites that file every N new keyframes during the run.
 """
 
 from __future__ import annotations
@@ -26,9 +29,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-_NO_VIEWER = ("{} needs the map viewer (viz/), which is not ported to "
-              "orbslam_mapsave_tpu_torch yet; use orbslam_mapsave_tpu.apps.run_slam")
 
 
 def main(argv=None):
@@ -43,9 +43,14 @@ def main(argv=None):
     ap.add_argument("--save-map", help="map file to write at the end")
     ap.add_argument("--out", default="CameraTrajectory.txt")
     ap.add_argument("--kf-out", default="KeyFrameTrajectory.txt")
-    ap.add_argument("--viewer-dir", help="(viz/ slice, not ported)")
-    ap.add_argument("--html-view", help="(viz/ slice, not ported)")
-    ap.add_argument("--html-live", type=int, default=0, help="(viz/ slice, not ported)")
+    ap.add_argument("--viewer-dir", help="write frame/map snapshots here")
+    ap.add_argument("--html-view", help="write an interactive HTML map view here at the "
+                                        "end (orbit/zoom/pan in any browser)")
+    ap.add_argument("--html-live", type=int, default=0, metavar="N_KFS",
+                    help="LIVE map window: rewrite --html-view every N new keyframes "
+                         "during the run; the page auto-refreshes, so a browser pointed "
+                         "at it approximates the reference's live viewer (costs one map "
+                         "fetch per rewrite)")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--follow", action="store_true",
                     help="treat --dataset as a GROWING directory (live-sensor stand-in): "
@@ -55,10 +60,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the plain path)")
     args = ap.parse_args(argv)
-    for flag, value in (("--viewer-dir", args.viewer_dir), ("--html-view", args.html_view),
-                        ("--html-live", args.html_live)):
-        if value:
-            raise SystemExit(_NO_VIEWER.format(flag))
 
     from .. import config as config_mod
     from ..io import dataset as dataset_mod
@@ -72,8 +73,6 @@ def main(argv=None):
         cfg.reuse_map, cfg.reuse_map_path = True, args.reuse_map
     if args.vocabulary:
         cfg.vocabulary_path = args.vocabulary
-    if cfg.use_viewer:
-        print(_NO_VIEWER.format("UseViewer") + ": running without it", file=sys.stderr)
     dataset_root = args.dataset or cfg.load_image_path
 
     voc = None
@@ -90,6 +89,16 @@ def main(argv=None):
     slam = system_mod.SLAMSystem(
         cfg, sensor, vocabulary=voc,
         reuse_map_path=cfg.reuse_map_path if cfg.reuse_map else None, device=args.device)
+    viewer = None
+    if args.viewer_dir or cfg.use_viewer or (args.html_live and args.html_view):
+        from ..viz.viewer import Viewer
+
+        viewer = Viewer(
+            slam, cfg.viewer, args.viewer_dir or "viewer_out",
+            # PNG snapshots only when a viewer dir was asked for
+            every_n=10 if (args.viewer_dir or cfg.use_viewer) else 10**9,
+            live_html=args.html_view if args.html_live else None,
+            live_every_kfs=max(args.html_live, 1))
 
     def log(i, extra):
         state = ["WAIT", "INIT", "OK", "LOST"][slam.tracking_state]
@@ -114,8 +123,10 @@ def main(argv=None):
               f"{args.follow_timeout}s ...")
         for i, (t, gray, depth) in enumerate(src.frames()):
             t0 = time.perf_counter()
-            track(gray, depth, t)
+            pose = track(gray, depth, t)
             t_track.append(time.perf_counter() - t0)
+            if viewer is not None:
+                viewer.update(gray, slam.tracker.last_frame, pose)
             if i % 30 == 0:
                 log(i, f"dropped={src.n_dropped}")
             if args.max_frames and src.n_seen >= args.max_frames:
@@ -129,8 +140,10 @@ def main(argv=None):
         for i in range(n):
             t, gray, other = ds.stereo(i) if sensor == system_mod.Sensor.STEREO else ds[i]
             t0 = time.perf_counter()
-            track(gray, other, t)
+            pose = track(gray, other, t)
             t_track.append(time.perf_counter() - t0)
+            if viewer is not None:
+                viewer.update(gray, slam.tracker.last_frame, pose)
             if i % 30 == 0:
                 log(i, f"({1e3 * t_track[-1]:.0f} ms)")
 
@@ -143,6 +156,12 @@ def main(argv=None):
     if args.save_map:
         slam.save_map(args.save_map)
         print(f"map saved to {args.save_map}")
+    if args.html_view:
+        from ..viz import html_viewer, viewer as viewer_mod
+
+        html_viewer.export_html(slam.map, args.html_view,
+                                trajectory=viewer_mod.tracked_twc(slam.tracker.trajectory))
+        print(f"interactive map view written to {args.html_view}")
     slam.shutdown()
 
 

@@ -1,7 +1,7 @@
 """SO3 / SE3 Lie-group operations on torch tensors.
 
-Port of `orbslam_mapsave_tpu/geometry/se3.py` (SO3, SE3 and Sim3; the
-quaternion helpers wait for a path that needs them). Rotations are 3x3
+Port of `orbslam_mapsave_tpu/geometry/se3.py` (SO3, SE3, Sim3 and the TUM
+quaternion conversions). Rotations are 3x3
 matrices, transforms 4x4 homogeneous matrices, a Sim3 a 4x4 matrix with sR
 in the rotation block (g2o::Sim3 layout); every function broadcasts over
 leading batch dimensions and is Taylor-guarded near theta=0.
@@ -202,6 +202,48 @@ def sim3_orthonormalize(S: torch.Tensor, iters: int = 3) -> torch.Tensor:
         R = R @ (1.5 * eye3 - 0.5 * R.transpose(-1, -2) @ R)
     return rt_to_mat(s * R, S[..., :3, 3])
 
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (...,4) (x,y,z,w, TUM order) -> rotation matrix (...,3,3)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / torch.where(n > 0, n, torch.ones_like(n)), torch.zeros_like(n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x,y,z,w), w>=0, branch-free
+    (Shepperd): the candidate built on the largest of (trace, m00, m11,
+    m22), normalized."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) * 0.5
+    d = 4.0 * qw
+    q0 = torch.stack([(m21 - m12) / d[..., 0], (m02 - m20) / d[..., 0],
+                      (m10 - m01) / d[..., 0], qw[..., 0]], dim=-1)
+    q1 = torch.stack([qw[..., 1], (m01 + m10) / d[..., 1], (m02 + m20) / d[..., 1],
+                      (m21 - m12) / d[..., 1]], dim=-1)
+    q2 = torch.stack([(m01 + m10) / d[..., 2], qw[..., 2], (m12 + m21) / d[..., 2],
+                      (m02 - m20) / d[..., 2]], dim=-1)
+    q3 = torch.stack([(m02 + m20) / d[..., 3], (m12 + m21) / d[..., 3], qw[..., 3],
+                      (m10 - m01) / d[..., 3]], dim=-1)
+    cases = torch.stack([q0, q1, q2, q3], dim=-2)  # (...,4 cases,4)
+    # first maximum on ties, as jnp.argmax
+    which = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.gather(cases, -2, which[..., None, None].expand(*which.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., 3:4] < 0, -q, q)
 
 def sim3_make(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Scale (...,), rotation (...,3,3), translation (...,3) -> (...,4,4)."""

@@ -193,6 +193,30 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
 
 
+@functools.lru_cache(maxsize=None)
+def nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """(out,) int64 source rows of `jax.image.resize(..., method="nearest")`:
+    floor((i + 0.5) * in / out) at half-pixel centres, with the float32
+    rounding XLA gives it. XLA folds `* in / out` into one product with the
+    constant f32(in) * f32(1 / out); `F.interpolate`'s "nearest" (no half
+    pixel) and "nearest-exact" (another rounding of the ratio) pick other
+    rows at the pyramid's level sizes."""
+    f32 = np.float32
+    ratio = f32(in_size) * (f32(1.0) / f32(out_size))
+    return np.floor((np.arange(out_size, dtype=f32) + f32(0.5)) * ratio).astype(np.int64)
+
+
+def resize_mask_nearest(mask: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """The (H,W) mask sampled at a level's (height, width) as
+    `jax.image.resize(mask, ..., method="nearest")` samples it."""
+    h, w = mask.shape
+    if (h, w) == (height, width):
+        return mask
+    ys = torch.from_numpy(nearest_index(h, height)).to(mask.device)
+    xs = torch.from_numpy(nearest_index(w, width)).to(mask.device)
+    return mask[ys[:, None], xs[None, :]]
+
+
 def reflect101_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
     """cv::BORDER_REFLECT_101 padding (edge pixel not duplicated)."""
     return F.pad(img[None, None], (pad, pad, pad, pad), mode="reflect")[0, 0]
@@ -351,8 +375,14 @@ def brief_from_patches(patches43: torch.Tensor, angles_deg: torch.Tensor
     return torch.sum(bits.reshape(c, 32, 8) * weights, dim=-1).to(torch.uint8)
 
 
-def extract(spec: ORBSpec, image: torch.Tensor) -> dict:
+def extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
     """Full ORB extraction on one grayscale image (H,W) float32 [0,255].
+
+    `mask` (H,W): zero/False pixels are excluded, the fork's human-mask
+    hook (`src/ORBextractor.cc:1048-1053`, `src/Tracking.cc:373-384`). As in
+    the JAX version, a candidate whose centre falls in the masked region
+    (the mask sampled nearest at its level) scores 0 before the level's
+    top-k, so the level's budget refills from unmasked corners.
 
     Returns a fixed-capacity keypoint dict: xy (M,2) f32 level-0 pixel
     coords, response (M,), angle_deg (M,), octave (M,) i32, size (M,),
@@ -363,12 +393,18 @@ def extract(spec: ORBSpec, image: torch.Tensor) -> dict:
             f"{spec.width}) — Camera.width/height in the settings yaml must "
             "match the input")
     dev = image.device
+    if mask is not None:
+        mask = torch.as_tensor(mask).to(dev, torch.float32)
     pyramid = build_pyramid(spec, image)
     all_xy, all_resp, all_ang, all_oct, all_desc = [], [], [], [], []
     W43 = 2 * DESC_PAD + 1
     for lvl, ls in enumerate(spec.levels):
         padded = pyramid[lvl]
         xy, score = detect_level(spec, ls, padded)
+        if mask is not None:
+            m = resize_mask_nearest(mask, ls.height, ls.width)
+            xyl = xy.long()
+            score = torch.where(m[xyl[:, 1], xyl[:, 0]] > 0, score, torch.zeros_like(score))
         score_sel, sel = topk_stable(score, min(ls.budget, score.shape[0]))
         xy = xy[sel]
         blurred = torch.round(gaussian_blur7(padded))

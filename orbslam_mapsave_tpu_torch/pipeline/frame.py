@@ -49,15 +49,16 @@ class FrameBuilder:
         self.inv_level_sigma2_t = torch.from_numpy(self.inv_level_sigma2).to(self.device)
         self.bounds_t = torch.from_numpy(self.bounds).to(self.device)
 
-    def build(self, image, timestamp: float, depth=None) -> FrameData:
+    def build(self, image, timestamp: float, depth=None, mask=None) -> FrameData:
         """Frame from an image (H,W) and, for RGB-D, a depth map (H,W) in
         meters, in any numeric dtype (u8 image and f16 depth are what a
         sensor delivers); all compute runs in float32 on `self.device`.
         Without depth (monocular, `Frame.cc:160-215`) every feature has
-        ur = depth = -1."""
+        ur = depth = -1. `mask` (H,W), optional: the human mask, zero where
+        no keypoint may be detected (`orb.extract`)."""
         cam = self.cam
         image = torch.as_tensor(image).to(self.device, torch.float32)
-        kp = orb.extract(self.spec, image)
+        kp = orb.extract(self.spec, image, mask)
         und = projection.undistort_points(cam, kp["xy"])
         none = torch.full_like(und[:, 0], -1.0)
         if depth is None:

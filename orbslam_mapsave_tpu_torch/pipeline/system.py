@@ -237,6 +237,8 @@ class SLAMSystem:
         trk.ts_epoch = None
         trk.n_pt_watermark = 0
         trk.n_kf_watermark = 0
+        trk.n_kf = 0
+        trk.last_frame = None
         trk.ba_lanes_dropped = 0
         trk.ba_escalations = 0
         trk.new_kf_slots.clear()
@@ -334,6 +336,40 @@ class SLAMSystem:
         Two = (np.linalg.inv(self.map.kf_pose[int(np.nonzero(valid)[0][0])].cpu().numpy())
                if valid.any() else np.eye(4))
         traj_io.save_matrix_trajectory(path, [p @ Two for _, p, _ in self.tracker.trajectory])
+
+    def change_calibration(self, settings_path: str | Path):
+        """`Tracking::ChangeCalibration` (`src/Tracking.cc:1821-1852`):
+        re-read camera intrinsics/distortion/baseline from a settings yaml
+        and rebuild what holds the old camera, as the JAX version does
+        (`system.py:404-449`): the `Camera`, the `FrameBuilder` (its bounds
+        and tables), the tracker's camera, intrinsic matrix, `th_depth`,
+        tracking kernels and per-frame step, and the `LocalMapper`. The
+        relocalizer and the loop closer keep the camera they were built
+        with, as in the JAX version."""
+        cfg = config_mod.load_camera_settings(settings_path, self.cfg)
+        self.cfg = cfg
+        c = cfg.camera
+        self.cam = projection.Camera.create(
+            c.fx, c.fy, c.cx, c.cy, c.k1, c.k2, c.p1, c.p2, c.k3,
+            bf=c.bf, width=c.width, height=c.height)
+        self.builder = frame_mod.FrameBuilder(self.cam, self.spec, self.device)
+        trk = self.tracker
+        trk.cfg.th_depth = float(c.bf) / float(c.fx) * float(c.th_depth)
+        trk.cam = self.cam
+        trk.K = torch.tensor([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]],
+                             dtype=torch.float32, device=self.device)
+        trk.builder = self.builder
+        if self.mapper is not None:
+            self.mapper = local_mapping.LocalMapper(
+                self.cam, self.builder.inv_level_sigma2,
+                is_mono=(self.sensor == Sensor.MONOCULAR),
+                scale_factors=self.builder.scale_factors,
+                n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+        trk.k = tracking.make_tracking_kernels(
+            self.cam, self.builder, cfg.orb.n_levels, cfg.orb.scale_factor)
+        trk.step = fused_step.make_fused_step(
+            self.cam, self.builder, cfg.orb.n_levels, cfg.orb.scale_factor,
+            trk.cfg, self.mapper)
 
     # ------ introspection (System.h:144-160 analogues) ------
     @property

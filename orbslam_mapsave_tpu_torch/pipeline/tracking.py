@@ -425,6 +425,10 @@ class Tracker:
         self.host_kf_slots: list[int] = []  # keyframes made on the host (mono bootstrap)
         self._init_frame = None  # the monocular initializer's first frame
         self._init_frame_id = 0
+        self.last_frame: frame_mod.FrameData | None = None  # the newest frame built
+        # keyframes alive after the newest frame, as its step's outcome read
+        # them (the viewer's live rewrite counts with it: no device read)
+        self.n_kf = 0
 
     @property
     def trajectory(self) -> list[tuple[float, np.ndarray, bool]]:
@@ -445,6 +449,7 @@ class Tracker:
         self._trajectory.append((t, out.pose.cpu().numpy(), lost))
         self.n_pt_watermark = out.n_pt
         self.n_kf_watermark = out.n_kf_alloc
+        self.n_kf = out.n_kf
         self.ba_lanes_dropped += out.ba_lanes_dropped
         self.ba_escalations += int(out.ba_escalated)
         if out.kf_created:
@@ -514,6 +519,7 @@ class Tracker:
 
     def _track(self, fr: frame_mod.FrameData, timestamp: float):
         """The per-frame step on a frame with depth (RGB-D or stereo)."""
+        self.last_frame = fr
         self._ensure_ctrl(fr)
         self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
         self._record(out, float(timestamp))
@@ -531,6 +537,7 @@ class Tracker:
         while not initialized)."""
         t_dev = self._dev_ts(timestamp)
         fr = self.builder.build(image, t_dev)
+        self.last_frame = fr
         self._ensure_ctrl(fr)
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             self._mono_initialize(fr, float(timestamp))
@@ -587,6 +594,7 @@ class Tracker:
         self.map = state._replace(kf_pose=poses, pt_pos=pts)
         self.state = OK
         self.ref_kf = kf2
+        self.n_kf = 2  # the bootstrap pair, on an empty map
         pose = self.map.kf_pose[kf2]
         self.host_kf_slots += [kf1, kf2]
         self._init_frame = None

@@ -1,8 +1,10 @@
 """Fixed-capacity structure-of-arrays SLAM map state.
 
-Port of `orbslam_mapsave_tpu/slammap/mapstate.py` (the subset the RGB-D
-tracking and local-mapping paths use): the reference's pointer-graph map (`Map` + `KeyFrame`
-+ `MapPoint`) as ONE NamedTuple of padded tensors with validity masks.
+Port of `orbslam_mapsave_tpu/slammap/mapstate.py` (all of it but the
+whole-map `compute_distinctive_descriptors` / `update_normal_and_depth`,
+whose `_idx` forms the paths call): the reference's pointer-graph map
+(`Map` + `KeyFrame` + `MapPoint`) as ONE NamedTuple of padded tensors with
+validity masks.
 Object identity = array slot. Updates are functional — every function
 returns a new MapState and leaves its input untouched, as in the JAX
 version — so callers can keep or drop a candidate state on the host.
@@ -373,6 +375,54 @@ def erase_points(state: MapState, pt_mask: torch.Tensor) -> MapState:
         pt_obs_idx=torch.where(m, torch.full_like(state.pt_obs_idx, -1), state.pt_obs_idx),
         pt_obs_oct=torch.where(m, torch.full_like(state.pt_obs_oct, -1), state.pt_obs_oct),
     )
+
+
+def replace_points(state: MapState, src: torch.Tensor, dst: torch.Tensor,
+                   ok: torch.Tensor) -> MapState:
+    """Fuse: every forward reference to src[i] is redirected to dst[i]
+    (`MapPoint::Replace`, `src/MapPoint.cc`), src's visible / found counts
+    are added to dst's, then src is erased. Live src slots must be unique.
+
+    Reverse lists of dst are NOT extended lane-by-lane here; callers run
+    `rebuild_observations` after a fuse batch, as in the JAX version."""
+    P = state.pt_capacity
+    dev = src.device
+    src_c = torch.where(ok, src, torch.zeros_like(src)).long()
+    redirect = set_rows(torch.arange(P, dtype=torch.int32, device=dev), src, dst, ok)
+    fwd = state.kf_kp_point
+    new_fwd = torch.where(fwd >= 0, redirect[torch.clamp(fwd, min=0).long()], fwd)
+    # accumulate found/visible like MapPoint::Replace does
+    vis = add_rows(state.pt_visible, dst, state.pt_visible[src_c], ok)
+    fnd = add_rows(state.pt_found, dst, state.pt_found[src_c], ok)
+    bad = set_rows(torch.zeros(P, dtype=torch.bool, device=dev), src, True, ok)
+    state = state._replace(kf_kp_point=new_fwd, pt_visible=vis, pt_found=fnd)
+    return erase_points(state, bad)
+
+
+def rebuild_observations(state: MapState) -> MapState:
+    """Recompute the reverse lists (pt_obs_kf / pt_obs_idx / pt_obs_oct)
+    from the forward map — the functional replacement for the reference's
+    incremental pointer surgery. O(K*N). Each point's observations take
+    lanes in (keyframe, keypoint) order, at most MAX_OBS of them."""
+    K, N = state.kf_kp_point.shape
+    P = state.pt_capacity
+    dev = state.kf_kp_point.device
+    flat = state.kf_kp_point.reshape(-1).long()
+    # lane = rank of the observation among its point's: stable sort by point
+    keys = torch.where(flat >= 0, flat, torch.full_like(flat, P))
+    sorted_keys, order = torch.sort(keys, stable=True)
+    lane = torch.arange(K * N, device=dev) - torch.searchsorted(sorted_keys, sorted_keys)
+    kf_of, ft_of = order // N, order % N
+    ok = (sorted_keys < P) & (lane < MAX_OBS)
+    lane = torch.where(ok, lane, torch.zeros_like(lane))
+
+    def table(vals, dtype):
+        return set_rows(torch.full((P, MAX_OBS), -1, dtype=dtype, device=dev),
+                        sorted_keys, vals, ok, lane=lane)
+
+    return state._replace(
+        pt_obs_kf=table(kf_of, torch.int32), pt_obs_idx=table(ft_of, torch.int32),
+        pt_obs_oct=table(state.kf_kp_octave[kf_of, ft_of], torch.int8))
 
 
 def merge_points(state: MapState, src: torch.Tensor, dst: torch.Tensor,

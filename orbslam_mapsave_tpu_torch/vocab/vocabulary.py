@@ -5,10 +5,10 @@ Port of `orbslam_mapsave_tpu/vocab/vocabulary.py` (`TemplatedVocabulary`,
 (packed descriptor (Nn,32) u8, parent, children table (Nn,k), weight, leaf
 word id); the fork's binary and text file formats; `train` by hierarchical
 binary k-medians; the tree descent for all descriptors of a keyframe at
-once (`make_transform_packed`); sparse and dense L1-normalized tf-idf BoW
-vectors and the DBoW2 L1 score. The file formats and `train` are numpy and
-byte-identical to the JAX version's; the bit-plane `make_transform` and the
-ORBvoc-scale `synthetic_full` fixture are not ported.
+once (`make_transform_packed`, and `make_transform` for bit-plane input);
+sparse and dense L1-normalized tf-idf BoW vectors and the DBoW2 L1 score;
+the ORBvoc-scale `synthetic_full` fixture. The file formats, `train` and
+`synthetic_full` are numpy and byte-identical to the JAX version's.
 """
 
 from __future__ import annotations
@@ -226,6 +226,30 @@ def train(descriptors: np.ndarray, k: int = 10, L: int = 3, seed: int = 0) -> Vo
                       weight, word_id, len(leaf_nodes))
 
 
+def synthetic_full(k: int = 10, L: int = 6, seed: int = 0) -> Vocabulary:
+    """A complete k^L tree with random descriptors — an ORBvoc-SCALE fixture
+    (k=10, L=6 -> 1,111,111 nodes / 1M words, the geometry stored in the
+    real `ORBvoc.bin` header, `TemplatedVocabulary.h:1471-1476`). The project
+    does not ship ORBvoc itself; this gives its shapes, memory and latency
+    without the data. The same seed gives the JAX version's tree."""
+    counts = [k**i for i in range(L + 1)]
+    Nn = sum(counts)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    parent = np.full(Nn, -1, np.int32)
+    for lvl in range(1, L + 1):
+        ids = np.arange(counts[lvl])
+        parent[off[lvl] + ids] = (off[lvl - 1] + ids // k).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    desc = rng.integers(0, 256, (Nn, DESC_BYTES), dtype=np.uint8)
+    desc[0] = 0
+    weight = rng.uniform(0.1, 1.0, Nn).astype(np.float32)
+    word_id = np.full(Nn, -1, np.int32)
+    leaves = np.arange(off[L], Nn)
+    word_id[leaves] = np.arange(len(leaves), dtype=np.int32)
+    return Vocabulary(k, L, 0, 0, parent, _children_table(parent, k), desc,
+                      weight, word_id, len(leaves))
+
+
 # ---------------------------------------------------------------------------
 # Tree descent + scoring (device path)
 # ---------------------------------------------------------------------------
@@ -272,6 +296,22 @@ def make_transform_packed(voc: Vocabulary, levelsup: int = 4):
         return dict(word=torch.where(ok, wid, -1),
                     weight=torch.where(ok, weight[cur], torch.zeros_like(weight[cur])),
                     node=torch.where(ok, fv_node.to(torch.int32), -1))
+
+    return transform
+
+
+def make_transform(voc: Vocabulary, levelsup: int = 4):
+    """`make_transform_packed` for descriptors given as (N,256) int8 bit
+    planes (LSB-first, `hamming.unpack_bits`), the JAX version's bit-plane
+    entry point. The sum of |child bit - descriptor bit| over the planes is
+    the Hamming distance the packed descent counts, so both descend alike;
+    here the planes are packed back and the packed descent runs."""
+    from ..ops import hamming
+
+    packed = make_transform_packed(voc, levelsup)
+
+    def transform(desc_bits: torch.Tensor, valid: torch.Tensor):
+        return packed(hamming.pack_bits(desc_bits), valid)
 
     return transform
 

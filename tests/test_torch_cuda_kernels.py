@@ -1,4 +1,6 @@
-"""The pose-LM CUDA kernel against its plain PyTorch version, on the card.
+"""The pose-LM CUDA kernel against its plain PyTorch version, on the card;
+and the card runs of PoseNet's forward and of a human-masked frame build
+against the same calls on the CPU.
 
 Needs an NVIDIA GPU with nvcc (the kernel is built from csrc/pose_lm.cu at
 first use); skipped elsewhere. On the card:
@@ -183,3 +185,60 @@ def test_batched_dispatcher_one_launch(dev):
         p_ref, inl_ref, n_ref = _plain(obs, pose0, b)
         assert (pose[b] - p_ref).abs().max().item() <= TOL_POSE
         assert torch.equal(inl[b], inl_ref) and int(n[b]) == int(n_ref)
+
+
+def test_posenet_card_forward_matches_cpu(dev):
+    """PoseNet at full width (64) on the reference's 176x320 input: the
+    card's forward against the CPU's, same weights, same dtypes (bf16 convs
+    in both): the tolerances of `test_torch_pose_net.py`."""
+    from orbslam_mapsave_tpu_torch.models import pose_net
+
+    net = pose_net.init_params(pose_net.PoseNet(64), torch.Generator().manual_seed(0))
+    img = torch.rand(176, 320, generator=torch.Generator().manual_seed(1)) * 255
+    with torch.no_grad():
+        h_cpu = net(img[None, None] / 255.0)[0]
+        k_cpu = pose_net.decode_heatmaps(h_cpu)
+        net_gpu = net.to(dev)
+        h_gpu = net_gpu(img.to(dev)[None, None] / 255.0)[0].cpu()
+        k_gpu = pose_net.infer(net_gpu, img.to(dev)).cpu()
+    assert h_gpu.dtype == torch.float32 and h_gpu.shape == (25, 44, 80)
+    assert (h_gpu - h_cpu).abs().max().item() <= 0.05
+    assert (k_gpu[:, :2] - k_cpu[:, :2]).abs().max().item() <= 0.5
+    assert (k_gpu[:, 2] - k_cpu[:, 2]).abs().max().item() <= 1e-2
+
+
+def test_masked_build_card_matches_cpu(dev):
+    """FrameBuilder.build with a human mask on a 640x480 bench frame, card
+    against CPU: no valid keypoint inside the mask at its level's resize on
+    either, and the same keypoints and descriptors but for pyramid rounding
+    ties (>= 99%)."""
+    from orbslam_mapsave_tpu_torch.geometry import projection
+    from orbslam_mapsave_tpu_torch.io import synthetic
+    from orbslam_mapsave_tpu_torch.ops import orb
+    from orbslam_mapsave_tpu_torch.pipeline import frame
+
+    W, H = 640, 480
+    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1]])
+    g, d = synthetic.BoxRoom(2.0, seed=11).render(K, synthetic.circle_trajectory(240)[10], W, H)
+    img = np.clip(g, 0, 255).astype(np.uint8)
+    mask = np.ones((H, W), np.float32)
+    mask[100:400, 250:397] = 0.0
+    cam = projection.Camera.create(520.0, 520.0, W / 2, H / 2, bf=41.6, width=W, height=H)
+    spec = orb.ORBSpec.create(H, W, n_features=2000)
+    out = []
+    for device in ("cpu", dev):
+        fr = frame.FrameBuilder(cam, spec, device).build(img, 0.0, d.astype(np.float16), mask)
+        v = fr.valid.cpu().numpy()
+        xy, octv = fr.kp_xy_raw.cpu().numpy(), fr.kp_octave.cpu().numpy()
+        for lvl, ls in enumerate(spec.levels):
+            m = orb.resize_mask_nearest(torch.from_numpy(mask), ls.height, ls.width).numpy()
+            on = v & (octv == lvl)
+            lx = np.round(xy[on, 0] / ls.scale).astype(int)
+            ly = np.round(xy[on, 1] / ls.scale).astype(int)
+            assert (m[ly, lx] > 0).all(), (str(device), lvl)
+        keys = {(float(a), float(b), int(o)): bytes(ds) for (a, b), o, ds in
+                zip(xy[v], octv[v], fr.desc.cpu().numpy()[v])}
+        out.append(keys)
+    common = out[0].keys() & out[1].keys()
+    assert len(common) >= 0.99 * max(len(out[0]), len(out[1]))
+    assert np.mean([out[0][k] == out[1][k] for k in common]) >= 0.99

@@ -120,3 +120,24 @@ def test_lm_jacobians_and_huber():
     d2 = np.where(rng.random(128) < 0.3, 7.815, 5.991).astype(np.float32)
     _close(jlm.huber_weight(jnp.asarray(chi2), jnp.asarray(d2)),
            tlm.huber_weight(torch.from_numpy(chi2), torch.from_numpy(d2)))
+
+
+def test_quaternions_match_jax():
+    """quat_to_rot / rot_to_quat on random rotations plus the identity and
+    half turns about each axis (each of Shepperd's four branches wins
+    somewhere), and unnormalized and zero quaternions: within 1e-6."""
+    rng = np.random.default_rng(4)
+    w = rng.normal(0, 1.5, (64, 3))
+    R = np.asarray(jse3.so3_exp(jnp.asarray(w, jnp.float32)))
+    half = [np.diag(d).astype(np.float32) for d in ([1, 1, 1], [1, -1, -1], [-1, 1, -1],
+                                                    [-1, -1, 1])]
+    R = np.concatenate([R, np.stack(half)])
+    qj = np.asarray(jse3.rot_to_quat(jnp.asarray(R)))
+    qt = tse3.rot_to_quat(torch.from_numpy(R)).numpy()
+    assert np.abs(qj - qt).max() <= 1e-6
+    q = np.concatenate([rng.normal(0, 2, (32, 4)), np.zeros((1, 4))]).astype(np.float32)
+    Rj = np.asarray(jse3.quat_to_rot(jnp.asarray(q)))
+    Rt = tse3.quat_to_rot(torch.from_numpy(q)).numpy()
+    assert np.abs(Rj - Rt).max() <= 1e-6
+    back = tse3.quat_to_rot(tse3.rot_to_quat(torch.from_numpy(R))).numpy()
+    assert np.abs(back - R).max() <= 1e-5

@@ -250,5 +250,10 @@ def test_run_slam_save_then_reuse(tmp_path):
     assert lost[0] and sum(not l for l in lost) >= 4
     assert tmapio.map_summary(slam.map) == saved
     assert len((tmp_path / "b.txt").read_text().splitlines()) >= 4
-    with pytest.raises(SystemExit, match="viz/"):
-        run_slam.main(base + ["--html-view", str(tmp_path / "v.html")])
+    # the viewer flags run on the port (no longer an exit): the live page
+    # is rewritten during the run and the final view written at the end
+    run_slam.main(base + ["--out", str(tmp_path / "c.txt"), "--kf-out", str(tmp_path / "ck.txt"),
+                          "--html-view", str(tmp_path / "v.html"), "--html-live", "1"])
+    page = (tmp_path / "v.html").read_text()
+    assert "__DATA__" not in page and '"traj": [[' in page and "<canvas" in page
+    assert 'http-equiv="refresh"' not in page  # the final view is not a live page

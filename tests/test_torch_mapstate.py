@@ -209,3 +209,32 @@ def test_add_points_at_capacity_matches_jax(case):
     np.testing.assert_array_equal(np.asarray(jslots), tslots.numpy())
     assert bool(ts.pt_valid[cap - 1]) == (case != "overflow_only")
     _cmp(js, ts)
+
+
+def test_replace_points_then_rebuild_observations(seeded):
+    """A fuse batch (unique live sources, some lanes masked, two sources
+    onto one destination) redirects forward references, adds the visible /
+    found counts, erases the sources; rebuilding the reverse lists from the
+    forward map gives JAX's tables. A point observed more than MAX_OBS
+    times keeps its first MAX_OBS observations, as in JAX."""
+    js, ts, slots0, _ = seeded
+    live = slots0[slots0 >= 0]
+    rng = np.random.default_rng(5)
+    pick = rng.permutation(live)[:24]
+    src, dst = pick[:16].astype(np.int32), np.r_[pick[16:24], pick[16:24]].astype(np.int32)
+    dst[1] = dst[0]
+    ok = rng.random(16) < 0.8
+    js2 = jms.replace_points(js, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ok))
+    ts2 = tms.replace_points(ts, torch.from_numpy(src), torch.from_numpy(dst),
+                             torch.from_numpy(ok))
+    _cmp(js2, ts2)
+    _cmp(jms.rebuild_observations(js2), tms.rebuild_observations(ts2))
+    # every keypoint of every keyframe on one point: past MAX_OBS lanes
+    d = _np(js2)
+    d["kf_kp_point"][:, :8] = live[0]
+    d["kf_kp_point"][2, 8:12] = live[1]
+    jcrowd = _to_jax(d)
+    tcrowd = interop.map_state_from_numpy(d)
+    jr, tr = jms.rebuild_observations(jcrowd), tms.rebuild_observations(tcrowd)
+    _cmp(jr, tr)
+    assert (np.asarray(jr.pt_obs_kf)[live[0]] >= 0).sum() == jms.MAX_OBS

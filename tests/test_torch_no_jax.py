@@ -3,7 +3,8 @@ where both are unimportable, import every module of
 orbslam_mapsave_tpu_torch and track one RGB-D frame on the CPU, without a
 vocabulary and with a small trained one and loop closing on, then save that
 map and relocalize one frame against it in reuse mode, and track a few
-monocular frames through the two-view bootstrap, and one stereo pair; and
+monocular frames through the two-view bootstrap, and one stereo pair, run
+the human-pose tracker on a port PoseNet and write one HTML map view; and
 no source line of the port or of chip_smoke.py imports either."""
 
 import subprocess
@@ -69,6 +70,17 @@ T[0, 3] = 0.08
 right = synthetic.BoxRoom(seed=5).render(K, synthetic.orbit_trajectory(2)[0] @ T, W, H)[0]
 st.track_stereo(gray.astype(np.uint8), right.astype(np.uint8), 0.0)
 assert st.n_keyframes == 1 and st.n_points > 100
+from orbslam_mapsave_tpu_torch.apps import human_pose
+from orbslam_mapsave_tpu_torch.models import pose_net, pose_synth
+from orbslam_mapsave_tpu_torch.viz import html_viewer
+net = pose_net.init_params(pose_net.PoseNet(8), torch.Generator().manual_seed(0))
+det = human_pose.OpDetector(backbone=pose_net.make_backbone(net), fx=100.0, fy=100.0,
+                            cx=48.0, cy=48.0)
+img, _ = pose_synth.render_stick_figure(np.random.default_rng(0), 96, 96)
+assert det.run_frame(img, np.full((96, 96), 2.0, np.float32)).shape == (96, 96)
+assert np.isfinite(det.joints_3d).all()
+page = html_viewer.export_html(slam.map, pathlib.Path(tempfile.mkdtemp()) / "v.html")
+assert "__DATA__" not in page.read_text()
 assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names), slam.n_points)

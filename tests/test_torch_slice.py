@@ -109,6 +109,48 @@ def test_trajectory_quality(runs, seq):
     assert ate < 0.05
 
 
+def test_change_calibration_as_jax(seq, tmp_path):
+    """`change_calibration` after 5 tracked frames, to a settings file with
+    another baseline, depth threshold and principal point (half a pixel
+    off): both packages rebuild the camera, the frame builder's tables and
+    the tracker's depth threshold alike, and track the next 5 frames to the
+    same lost flags, keyframe and point counts and poses within 1e-4."""
+    yaml = tmp_path / "cam2.yaml"
+    yaml.write_text("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in {
+        "Camera.fx": FX, "Camera.fy": FX, "Camera.cx": W / 2 + 0.5, "Camera.cy": H / 2,
+        "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0, "Camera.p2": 0.0,
+        "Camera.width": W, "Camera.height": H, "Camera.fps": 30.0,
+        "Camera.bf": FX * 0.1, "ThDepth": 40.0, "DepthMapFactor": 5000.0}.items()))
+    js = _system(jcfg, jsys)
+    ts = _system(tcfg, tsys, device="cpu")
+    frames = list(dataset.TUMDataset(seq["root"], depth_factor=5000.0))
+    rows = []
+    for i, (t, gray, depth) in enumerate(frames):
+        if i == 5:
+            js.tracker.flush()
+            js.change_calibration(yaml)
+            ts.change_calibration(yaml)
+            jc, tc = js.cam, ts.cam
+            for f in ("fx", "fy", "cx", "cy", "bf", "width", "height"):
+                assert float(getattr(jc, f)) == float(getattr(tc, f)), f
+            assert float(tc.cx) == W / 2 + 0.5 and float(tc.bf) == FX * 0.1
+            np.testing.assert_array_equal(np.asarray(js.builder.bounds), ts.builder.bounds)
+            np.testing.assert_array_equal(np.asarray(js.builder.inv_level_sigma2),
+                                          ts.builder.inv_level_sigma2)
+            assert js.tracker.cfg.th_depth == ts.tracker.cfg.th_depth == 0.1 * 40.0
+            assert ts.tracker.builder is ts.builder and ts.tracker.cam is tc
+            assert float(ts.tracker.K[0, 2]) == W / 2 + 0.5
+        js.track_rgbd(gray, depth, t)
+        js.tracker.flush()
+        ts.track_rgbd(gray, depth, t)
+        rows.append((js.tracker.trajectory[-1], ts.tracker.trajectory[-1],
+                     (js.n_keyframes, js.n_points), (ts.n_keyframes, ts.n_points)))
+    for i, ((_, pj, lj), (_, pt, lt), nj, nt) in enumerate(rows):
+        assert lj == lt and nj == nt, (i, nj, nt)
+        assert np.abs(pj - pt).max() <= 1e-4, (i, np.abs(pj - pt).max())
+    assert not any(r[1][2] for r in rows)
+
+
 @pytest.mark.parametrize("at", [3, 5])
 def test_step_from_jax_state(seq, at):
     """One port step on the JAX run's own map, control state and frame

@@ -210,3 +210,29 @@ def test_store_rows():
     ts, js = tdb.erase_keyframe_bow_sparse(ts, 2), jdb.erase_keyframe_bow_sparse(js, 2)
     for a, b in zip(ts, js):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_bitplane_transform_matches_jax(vocs, descs):
+    """The bit-plane entry point (`make_transform`) against the JAX
+    version's on the same real ORB descriptors: the same words, weights
+    and FeatureVector nodes."""
+    jv, tv = vocs
+    jt, tt = jvoc.make_transform(jv), tvoc.make_transform(tv)
+    for d in descs:
+        bits = np.unpackbits(d, axis=1, bitorder="little").astype(np.int8)
+        valid = np.arange(len(d)) < len(d) - 7
+        a = jt(jnp.asarray(bits), jnp.asarray(valid))
+        b = tt(torch.from_numpy(bits), torch.from_numpy(valid))
+        for key in ("word", "node"):
+            np.testing.assert_array_equal(np.asarray(a[key]), b[key].numpy(), err_msg=key)
+        np.testing.assert_array_equal(np.asarray(a["weight"]), b["weight"].numpy())
+        assert (b["word"] >= 0).sum() > 300
+
+
+def test_synthetic_full_equals_jax():
+    """The ORBvoc-scale fixture at a small size: the same tree and tables
+    from the same seed."""
+    jv, tv = jvoc.synthetic_full(k=4, L=3, seed=2), tvoc.synthetic_full(k=4, L=3, seed=2)
+    assert (tv.n_nodes, tv.n_words) == (jv.n_nodes, jv.n_words) == (85, 64)
+    for f in ("parent", "children", "desc", "weight", "word_id"):
+        np.testing.assert_array_equal(getattr(jv, f), getattr(tv, f), err_msg=f)
