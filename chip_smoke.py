@@ -142,6 +142,31 @@ no result):
               card and .bin -> .txt -> .bin; `NativeTUMDataset` against
               `TUMDataset`; `change_calibration` after 20 frames, the next 20
               tracked; ArUco where cv2.aruco imports.
+    endurance — tools/endurance.py's long run (after `apps`): 1,200 frames of
+              circle_trajectory(1200, radius=0.55, revs=2.6) in the bench room
+              at 640x480, 2,000 features, max_keyframes 256 and max_points
+              49,152 (the point allocator crosses the 0.9 compaction trigger
+              inside the run), phase 7's vocabulary and loop closing on; rendered in
+              a pool of processes, untimed over 24 frames, reset(), one timed
+              pass through tools/scale_endurance_torch.drive: lost frames no
+              more than the JAX CPU run's, keyframes within 20%, kf ATE within
+              1 cm, at least its loops, a point and a keyframe compaction
+              wherever it has one, every loop's global-BA job applied (or
+              aborted by a newer loop), 0 BA lanes dropped, one pose-LM launch
+              per pose optimization, and every live keyframe's BoW row equal
+              to the row rebuilt from its descriptors; frames/s, p50/p99/max
+              ms, ms per compaction, escalations, peak device memory.
+    scale   — tools/scale_endurance.py's reference scale: the first
+              SCALE_FRAMES frames of its 8,000-frame Lissajous sweep at
+              320x240, 1,000 features, max_keyframes 1,536, max_points
+              262,144, max_keypoints 1,024, with its own vocabulary (every
+              60th frame of the sweep, trained on the card's FrameBuilder)
+              and loop closing on: lost frames no more than the JAX CPU
+              run's at the same frames, live and allocated keyframes within
+              20%, kf ATE within 1 cm, one pose-LM launch per pose
+              optimization, every essential graph on CG and every global-BA
+              job on pcg_dual; loops, escalations and dropped lanes printed
+              beside JAX's; ms per mapping step beside phase 5's.
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
@@ -150,10 +175,11 @@ no result):
               host reads (stream syncs) and top device operations (last: a
               profile slows later launches).
 
-The last lines are the loop, mono and stereo slices' summaries, a JSON
-record of the kernels
+The last lines are the loop, mono, stereo, endurance and scale summaries,
+a JSON record of the kernels
 (`launches` from the loop slice, `launches_by_path` each slice's,
-`launches_batched` the B > 1 launches of the kidnap and reuse runs), the
+`launches_batched` the B > 1 launches of the kidnap, reuse, endurance and
+scale runs), the
 card's `nvidia-smi` name/power line, and
 {"ok": true, "device": {...}}.
 """
@@ -237,6 +263,35 @@ JAX_CPU_STEREO_KEYFRAMES = 26
 JAX_CPU_STEREO_KF_ATE_M = 0.0361134798947246
 JAX_CPU_STEREO_EVENTS = [(217, 35)]  # (query, match) keyframes' frame ids
 STEREO_CAPS = (512, 65536, 2048)  # SystemConfig's defaults: keyframes, points, keypoints
+# tools/endurance.py's workload on the JAX package, CPU, one pass from a
+# fresh system, outcomes read every frame
+# (`tools/jax_cpu_bench_reference.py --endurance`): 1,200 frames, none lost,
+# 42 keyframes (42 slots allocated), 38,583 points, kf ATE 0.008057 m (per
+# 1,000 frames 0.007888, 0.005589), 2 loops (frames 506 / 40, 1,589
+# inliers; 843 / 397, 1,267), both global-BA jobs applied (dense), 3 point
+# compactions and no keyframe compaction (the keyframe allocator peaks at 42
+# of 256 slots), 2 BA escalations, 0 lanes dropped; the vocabulary 9,640
+# words
+JAX_CPU_ENDURANCE = dict(
+    lost_frames=[], keyframes_live=42, kf_alloc_watermark=42, kf_ate_m=0.008057152337335442,
+    loops=2, events=[(506, 40), (843, 397)], gba_applied=2, gba_aborted=0,
+    point_compactions=3, keyframe_compactions=0, ba_escalations=2, ba_lanes_dropped=0)
+# the first SCALE_FRAMES frames of tools/scale_endurance.py's 8,000-frame
+# sweep on the JAX package, CPU, outcomes read every frame
+# (`tools/jax_cpu_bench_reference.py --scale --frames 1700`): lost on frames
+# 183-1,172 (the camera turns to walls past ThDepth's 2.4 m and the 8
+# keyframes stop gaining points; relocalized on frame 1,173) and 1,445-1,494,
+# 86 keyframe slots allocated, 40 keyframes live, 15,346 points, kf ATE
+# 0.053994 m (frames 0-999: 0.035428, 1,000-1,699: 0.051074), no loop, no
+# compaction, 61 BA escalations, 0 lanes dropped; the vocabulary 9,991
+# words. The first 600 frames alone (`--frames 600`): lost from 183 on, 8
+# keyframes, kf ATE 0.035765 m.
+SCALE_FRAMES = 1700
+JAX_CPU_SCALE = dict(
+    lost_frames=list(range(183, 1173)) + list(range(1445, 1495)), keyframes_live=40,
+    kf_alloc_watermark=86, kf_ate_m=0.05399423403513277, loops=0, ba_escalations=61,
+    ba_lanes_dropped=0, gba_solvers=[], essential_solvers=[], n_words=9991)
+RENDER_WORKERS = 8  # processes that render the long runs' frames
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
 N_FRAMES = 240
@@ -579,18 +634,13 @@ def phase_profile(dev):
 def bench_sequence():
     """The benchmark sequence (bench.py): ground-truth Twc poses and
     (u8 image, f16 depth) frames."""
-    from orbslam_mapsave_tpu_torch.io import synthetic
-
+    lr = _long_runs()
     t0 = time.perf_counter()
-    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
-    poses = synthetic.circle_trajectory(N_FRAMES, radius=0.55, revs=1.30)
-    room = synthetic.BoxRoom(half_size=2.0, seed=11)
-    frames = []
-    for i in range(N_FRAMES):
-        gray, depth = room.render(K, poses[i], W, H)
-        frames.append((np.clip(gray, 0, 255).astype(np.uint8),
-                       depth.astype(np.float16)))
-    log(f"[slice] rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    poses = lr.bench_poses()
+    # the endurance workload's camera, image size and room are the bench's
+    frames = lr.render(lr.ENDURANCE, poses, RENDER_WORKERS)
+    log(f"[slice] rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
+        f"({RENDER_WORKERS} processes)")
     return poses, frames
 
 
@@ -856,17 +906,12 @@ def train_vocabulary(slam, seq):
     """bench.py's vocabulary (`bench.py:88-107`): the descriptors of frames
     0, 12, ..., 228 from the system's own FrameBuilder, k = 10, L = 4,
     seed 1."""
-    from orbslam_mapsave_tpu_torch.vocab import vocabulary
-
+    lr = _long_runs()
     t0 = time.perf_counter()
     _, frames = seq
-    descs = []
-    for i in range(0, N_FRAMES, 12):
-        fr = slam.builder.build(frames[i][0], 1000.0 + i / 30.0, frames[i][1])
-        descs.append(fr.desc[fr.valid].cpu().numpy())
-    voc = vocabulary.train(np.concatenate(descs), k=10, L=4, seed=1)
-    log(f"[loop] vocabulary: {voc.n_words} words (JAX, CPU: {JAX_CPU_LOOP_N_WORDS}) "
-        f"from {sum(len(d) for d in descs)} descriptors in "
+    voc = lr.train_vocabulary(slam.builder, [
+        (*frames[i], 1000.0 + i / 30.0) for i in range(0, N_FRAMES, lr.BENCH_VOC_STEP)])
+    log(f"[loop] vocabulary: {voc.n_words} words (JAX, CPU: {JAX_CPU_LOOP_N_WORDS}) in "
         f"{time.perf_counter() - t0:.1f} s")
     return voc
 
@@ -1200,14 +1245,11 @@ def right_twc(Twc: np.ndarray) -> np.ndarray:
 
 def stereo_right_images(seq) -> list:
     """u8 right images of the bench trajectory, rendered in the bench room."""
-    from orbslam_mapsave_tpu_torch.io import synthetic
-
+    lr = _long_runs()
     t0 = time.perf_counter()
     poses, _ = seq
-    K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
-    room = synthetic.BoxRoom(half_size=2.0, seed=11)
-    out = [np.clip(room.render(K, right_twc(T), W, H)[0], 0, 255).astype(np.uint8)
-           for T in poses]
+    out = [g for g, _ in lr.render(lr.ENDURANCE, np.stack([right_twc(T) for T in poses]),
+                                   RENDER_WORKERS)]
     log(f"[stereo] rendered {len(out)} right images in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -2113,6 +2155,171 @@ def phase_apps(dev, seq, tmp: Path) -> dict:
     return res
 
 
+
+
+def _long_runs():
+    """tools/scale_endurance_torch.py: the long runs' sequences, systems
+    and drive loop."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import scale_endurance_torch
+
+    return scale_endurance_torch
+
+
+@contextlib.contextmanager
+def _counted_pose_opt():
+    """Count the pose optimizations asked for (the tracker's, and the
+    relocalizer's batches over its candidates) and the pose-LM launches made
+    meanwhile (counters zeroed on entry). Yields a dict that holds `calls`,
+    `batched_calls`, `launches` and `launches_batched` once the block ends."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt, pose_opt_cuda
+
+    out = dict(calls=0, batched_calls=0)
+    single, batched = pose_opt.pose_optimization, pose_opt.pose_optimization_batched
+
+    def counted(*args):
+        out["calls"] += 1
+        return single(*args)
+
+    def counted_batch(*args):
+        out["batched_calls"] += 1
+        return batched(*args)
+
+    with _patched([(pose_opt, "pose_optimization", counted),
+                   (pose_opt, "pose_optimization_batched", counted_batch)]):
+        pose_opt_cuda.reset_launches()
+        yield out
+        out.update(launches=pose_opt_cuda.launches,
+                   launches_batched=pose_opt_cuda.launches_batched)
+
+
+def _long_run(dev, wl, voc, name: str, frames: int | None = None) -> tuple[dict, object]:
+    """Render the workload's first `frames` frames in a process pool, warm
+    up over WARMUP_FRAMES untimed, reset(), then one timed pass through
+    SLAMSystem.track_rgbd with the pose-LM launches counted. Returns (the
+    run's numbers without the per-frame ms, the system)."""
+    lr = _long_runs()
+    t0 = time.perf_counter()
+    gt = wl.poses(frames)
+    seq = lr.render(wl, gt, RENDER_WORKERS)
+    render_s = time.perf_counter() - t0
+    slam = lr.make_system(wl, voc, dev)
+    lr.warm_up(slam, seq, WARMUP_FRAMES)
+    with _counted_pose_opt() as pc:
+        res = lr.drive(slam, seq, gt)
+    frame_ms = res.pop("frame_ms")
+    tracked = len(frame_ms) - 1 - len(res["lost_frames"])
+    res.update(render_s=render_s, pose_optimizations=pc["calls"],
+               relocalization_batches=pc["batched_calls"], launches=pc["launches"],
+               launches_batched=pc["launches_batched"])
+    if (pc["launches"] != pc["calls"] + pc["batched_calls"] or pc["calls"] < 2 * tracked):
+        raise AssertionError(f"[{name}] {pc['launches']} pose-LM launches for {pc['calls']} "
+                             f"pose optimizations and {pc['batched_calls']} relocalization "
+                             f"batches in {tracked} tracked frames")
+    return res, slam
+
+
+def _vs(res: dict, ref: dict, keys) -> dict:
+    """{key: [port, JAX CPU]}, lost frames as their stretches."""
+    st = _long_runs().stretches
+    return {k: [st(res[k]), st(ref[k])] if k == "lost_frames" else [res[k], ref[k]]
+            for k in keys}
+
+
+def _loggable(res: dict) -> dict:
+    """The run's numbers with the lost frames left out (their stretches
+    stay)."""
+    return {k: v for k, v in res.items() if k != "lost_frames"}
+
+
+def phase_endurance(dev, voc) -> dict:
+    """tools/endurance.py's long run through the port: 1,200 frames at
+    640x480 (circle_trajectory(1200, radius=0.55, revs=2.6), BoxRoom(2.0,
+    seed=11)), 2,000 features, max_keyframes 256 and max_points 49,152 so
+    the point allocator crosses the 0.9 compaction trigger, phase 7's vocabulary
+    and loop closing on. Held to the JAX CPU run: lost frames no more,
+    keyframes within 20%, kf ATE within 1 cm, at least its loops, at least
+    one point and one keyframe compaction where it has them, every loop's
+    global-BA job applied (or aborted by a newer loop), 0 BA lanes dropped,
+    one pose-LM launch per pose optimization, and every live keyframe's BoW
+    row equal to the row rebuilt from its descriptors."""
+    lr = _long_runs()
+    ref = JAX_CPU_ENDURANCE
+    res, slam = _long_run(dev, lr.ENDURANCE, voc, "endurance")
+    res["bow_rows_checked"], res["bow_rows_differing"] = lr.bow_rows_match_rebuild(slam)
+    ms_c = res["compaction_ms"]
+    res["ms_per_compaction"] = float(np.mean(ms_c)) if ms_c else None
+    log("[endurance] " + json.dumps(_loggable(res)))
+    log("[endurance] port vs JAX CPU: " + json.dumps(_vs(res, ref, (
+        "lost_frames", "keyframes_live", "kf_ate_m", "loops", "point_compactions",
+        "keyframe_compactions", "ba_escalations", "ba_lanes_dropped"))))
+    if len(res["lost_frames"]) > len(ref["lost_frames"]):
+        raise AssertionError(f"lost frames {res['lost_frames']}, JAX CPU {ref['lost_frames']}")
+    _check_quality(dict(keyframes=res["keyframes_live"], kf_ate_m=res["kf_ate_m"]),
+                   ref["keyframes_live"], ref["kf_ate_m"])
+    if res["loops"] < ref["loops"]:
+        raise AssertionError(f"{res['loops']} loops vs JAX CPU {ref['loops']}")
+    for kind in ("point_compactions", "keyframe_compactions"):
+        if ref[kind] and not res[kind]:
+            raise AssertionError(f"no {kind.replace('_', ' ')[:-1]}; JAX CPU made {ref[kind]}")
+    applied, aborted = res["gba_applied"], res["gba_aborted"]
+    if applied + aborted != res["loops"] or (res["loops"] and aborted >= res["loops"]):
+        raise AssertionError(f"GBA jobs: {applied} applied, {aborted} aborted for "
+                             f"{res['loops']} loops")
+    if res["ba_lanes_dropped"] != 0:
+        raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
+    if res["bow_rows_differing"]:
+        raise AssertionError(f"{res['bow_rows_differing']} of {res['bow_rows_checked']} live "
+                             "keyframes' BoW rows differ from a rebuild")
+    return res
+
+
+def phase_scale(dev, map_step_ms: tuple) -> dict:
+    """The reference scale (tools/scale_endurance.py's configuration) for
+    the first SCALE_FRAMES frames of its 8,000-frame sweep: 320x240, 1,000
+    features, max_keyframes 1,536, max_points 262,144, max_keypoints 1,024,
+    its own vocabulary (every 60th frame of the sweep) and loop closing on.
+    Held to the JAX CPU run at the same frames: lost frames no more, live
+    and allocated keyframes within 20%, kf ATE within 1 cm, one pose-LM
+    launch per pose optimization; every essential graph on the CG solver and
+    every global-BA job on pcg_dual. Loops, escalations and dropped lanes
+    are printed beside JAX's (the port reproduces JAX's O_BA truncation);
+    the mapping-step ms beside the bench caps' of phase 5 (`map_step_ms`)."""
+    lr = _long_runs()
+    ref = JAX_CPU_SCALE
+    t0 = time.perf_counter()
+    voc_frames = lr.vocabulary_frames(lr.SCALE, RENDER_WORKERS)
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    voc = lr.train_vocabulary(lr.make_system(lr.SCALE, None, dev).builder, voc_frames)
+    log(f"[scale] vocabulary: {voc.n_words} words (JAX, CPU: {ref['n_words']}); "
+        f"{len(voc_frames)} frames rendered in {render_s:.1f} s, trained in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res, slam = _long_run(dev, lr.SCALE, voc, "scale", SCALE_FRAMES)
+    res.update(n_words=voc.n_words, bench_map_step_p50_ms=map_step_ms[0],
+               bench_map_step_p99_ms=map_step_ms[1])
+    log("[scale] " + json.dumps(_loggable(res)))
+    log("[scale] port vs JAX CPU: " + json.dumps(_vs(res, ref, (
+        "lost_frames", "keyframes_live", "kf_alloc_watermark", "kf_ate_m", "loops",
+        "ba_escalations", "ba_lanes_dropped", "gba_solvers", "essential_solvers"))))
+    log(f"[scale] ms per mapping step p50 {res['map_step_p50_ms']:.1f} / p99 "
+        f"{res['map_step_p99_ms']:.1f} at K_cap 1536 / P_cap 262144, beside "
+        f"{map_step_ms[0]:.1f} / {map_step_ms[1]:.1f} at the bench caps (phase 5)")
+    if len(res["lost_frames"]) > len(ref["lost_frames"]):
+        raise AssertionError(f"lost frames {res['lost_frames']}, JAX CPU {ref['lost_frames']}")
+    for k in ("keyframes_live", "kf_alloc_watermark"):
+        if abs(res[k] - ref[k]) > 0.2 * ref[k]:
+            raise AssertionError(f"{k} {res[k]} vs JAX CPU {ref[k]}")
+    if not res["kf_ate_m"] <= ref["kf_ate_m"] + 0.01:
+        raise AssertionError(f"kf ATE {res['kf_ate_m']:.4f} m vs JAX CPU {ref['kf_ate_m']:.4f} m")
+    if set(res["essential_solvers"]) - {"cg"} or set(res["gba_solvers"]) - {"pcg_dual"}:
+        raise AssertionError(f"essential graphs {res['essential_solvers']}, GBA jobs "
+                             f"{res['gba_solvers']}: expected cg and pcg_dual")
+    return res
+
+
 def _profile_ranges(ranges: list) -> dict:
     """Each (name, fn) of `ranges` once unprofiled-range, then once inside a
     record_function range of its name, all in one torch.profiler session;
@@ -2222,7 +2429,7 @@ def main() -> int:
         kres = phase_kernel(dev)
         seq = bench_sequence()
         phase_slice(dev, seq)
-        _, mapper, captured = phase_mapping(dev, seq)
+        mres, mapper, captured = phase_mapping(dev, seq)
         phase_map_step(mapper, captured)
         with tempfile.TemporaryDirectory() as tmp:
             map_path = Path(tmp) / "map.npz"
@@ -2234,6 +2441,8 @@ def main() -> int:
             reu = phase_reuse(dev, seq, lc.voc, map_path, lres["save_ms"])
             phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
             apps = phase_apps(dev, seq, Path(tmp))
+            endu = phase_endurance(dev, lc.voc)
+        scale = phase_scale(dev, (mres["map_step_p50_ms"], mres["map_step_p99_ms"]))
         phase_profile(dev)
         phase_profile_map_step(mapper, captured)
         phase_profile_loop(lc, lcap, dev)
@@ -2257,6 +2466,15 @@ def main() -> int:
         "fps", "p50_ms", "p99_ms", "max_ms", "lost_frames", "loops", "events", "keyframes",
         "points", "kf_ate_m", "launches", "pose_optimizations", "gba_applied",
         "essential_solvers", "gba_solvers", "ba_lanes_dropped")}))
+    endu, scale = _loggable(endu), _loggable(scale)
+    log("[chip_smoke] endurance: " + json.dumps({k: endu[k] for k in (
+        "fps", "p50_ms", "p99_ms", "max_ms", "loops", "events", "keyframes_live", "points_live",
+        "kf_ate_m", "lost_stretches", "point_compactions", "keyframe_compactions",
+        "ms_per_compaction", "ba_escalations", "ba_lanes_dropped", "peak_memory_bytes")}))
+    log("[chip_smoke] scale: " + json.dumps({k: scale[k] for k in (
+        "frames", "fps", "p50_ms", "p99_ms", "max_ms", "loops", "keyframes_live",
+        "kf_alloc_watermark", "points_live", "kf_ate_m", "lost_stretches", "map_step_p50_ms",
+        "map_step_p99_ms", "ba_escalations", "ba_lanes_dropped", "peak_memory_bytes")}))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
@@ -2273,11 +2491,13 @@ def main() -> int:
         "per_iter_us": t1["per_iter_us_M2048"],
         "edge_pass_share": t1["edge_pass_share"],
         "sm_bound_ms": t1["sm_bound_ms"],
-        "launches_batched": kid["launches_batched"] + reu["launches_batched"],
+        "launches_batched": (kid["launches_batched"] + reu["launches_batched"]
+                             + endu["launches_batched"] + scale["launches_batched"]),
         "launches_by_path": {"loop": lres["launches"], "mono": mono["launches"],
                              "kidnap": kid["launches"], "reuse": reu["launches"],
                              "stereo": st["launches"],
-                             "apps": apps.get("run_slam", {}).get("launches")},
+                             "apps": apps.get("run_slam", {}).get("launches"),
+                             "endurance": endu["launches"], "scale": scale["launches"]},
         "batched_B": reu["batched_launch"]["B"],
         "batched_ms": reu["batched_launch"]["ms"],
         "batched_graph_ms": reu["batched_launch"]["graph_ms"],

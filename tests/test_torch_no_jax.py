@@ -95,13 +95,47 @@ def test_port_runs_without_jax():
 
 
 def test_sources_name_no_jax():
-    """Neither the port package nor chip_smoke.py (which runs on the card,
-    where jax is not installed) imports jax or the JAX package."""
+    """Neither the port package nor chip_smoke.py nor the long-run tool it
+    imports (both run on the card, where jax is not installed) imports jax
+    or the JAX package."""
     pkg = ROOT / "orbslam_mapsave_tpu_torch"
-    for f in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for f in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py",
+              ROOT / "tools" / "scale_endurance_torch.py"]:
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), f
             assert not s.startswith(("import orbslam_mapsave_tpu.",
                                      "from orbslam_mapsave_tpu.",
                                      "from orbslam_mapsave_tpu import")), f
+
+
+TOOL_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["orbslam_mapsave_tpu"] = None
+sys.path.insert(0, "tools")
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import scale_endurance_torch as tool
+wl = tool.SCALE
+gt = wl.poses(2)
+frames = tool.render(wl, gt, workers=1)
+slam = tool.make_system(wl, None, "cpu")
+assert (slam.cfg.max_keyframes, slam.cfg.max_points, slam.cfg.max_keypoints) == (
+    1536, 262144, 1024)
+res = tool.drive(slam, frames, gt)
+assert res["frames"] == 2 and res["lost_frames"] == [] and res["keyframes_live"] == 1
+assert not any(m == "jax" or m.startswith(("jax.", "orbslam_mapsave_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_long_run_tool_runs_without_jax():
+    """tools/scale_endurance_torch.py builds the reference-scale system and
+    drives two frames through it with jax and the JAX package unimportable."""
+    res = subprocess.run([sys.executable, "-c", TOOL_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")

@@ -3,8 +3,8 @@
 run JAX).
 
     JAX_PLATFORMS=cpu python tools/jax_cpu_bench_reference.py \
-        [--no-mapping | --loop | --kidnap | --reuse | --mono | --stereo]
-        [--default-caps]
+        [--no-mapping | --loop | --kidnap | --reuse | --mono | --stereo |
+         --endurance | --scale [--frames S]] [--default-caps]
 
 Runs bench.py's sequence and configuration (640x480, 2000 ORB features,
 circle_trajectory(240, radius=0.55, revs=1.30) in BoxRoom(2.0, seed=11),
@@ -69,6 +69,19 @@ and the BA lanes dropped.
 capacities (512 keyframes, 65,536 points, 2,048 keypoints), which select
 the CG essential graph and the `pcg_dual` global-BA job, instead of
 bench.py's 64 keyframes and 32,768 points.
+
+`--endurance` runs tools/endurance.py's workload (1,200 frames at 640x480,
+max_keyframes 256, max_points 49,152, bench.py's vocabulary) and `--scale`
+the first S frames (`--frames`, default 1,700: `chip_smoke.SCALE_FRAMES`;
+~19 min) of tools/scale_endurance.py's
+8,000-frame sweep at K_cap 1,536 / P_cap 262,144 / N 1,024 with its own
+vocabulary (frames 0, 60, ..., 7,980), both from
+tools/scale_endurance_torch.py's definitions, one pass from a fresh system.
+They print the lost frames, live keyframes, the keyframe allocator's high
+water mark, points, kf ATE (whole run and per 1,000 frames), the loop
+events (frame ids read when each is corrected), the global-BA jobs applied
+and aborted with their solvers, the essential graphs' solvers, the point
+and keyframe compactions, and the BA escalations and dropped lanes.
 
 All of them read the tracker's outcomes every frame (`fetch_every = 1`).
 """
@@ -372,6 +385,95 @@ def _reuse(cfg, voc, frames, poses, stamps) -> dict:
         n_pt_slots=int(reuse.map.n_pt))
 
 
+def _long_run(name: str, frames: int | None) -> dict:
+    """tools/scale_endurance_torch.py's `name` workload through the JAX
+    package, one pass from a fresh system, outcomes read every frame."""
+    from orbslam_mapsave_tpu.optim import pose_graph
+    from orbslam_mapsave_tpu.pipeline import gba as gba_mod
+    from orbslam_mapsave_tpu.slammap import mapstate
+    from orbslam_mapsave_tpu.vocab import vocabulary
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import scale_endurance_torch as tool
+
+    wl = tool.WORKLOADS[name]
+    n = frames or wl.frames
+    cfg = cfg_mod.SystemConfig()
+    cfg.camera = cfg_mod.CameraConfig(fx=wl.fx, fy=wl.fx, cx=wl.width / 2, cy=wl.height / 2,
+                                      width=wl.width, height=wl.height,
+                                      bf=wl.fx * BASELINE, th_depth=wl.th_depth, fps=30)
+    cfg.orb = cfg_mod.ORBConfig(n_features=wl.n_features, n_levels=4, scale_factor=1.5)
+    cfg.max_keypoints, cfg.max_keyframes = wl.max_keypoints, wl.max_keyframes
+    cfg.max_points = wl.max_points
+    room = synthetic.BoxRoom(half_size=wl.room[0], seed=wl.room[1])
+
+    def rendered(poses):
+        out = []
+        for T in poses:
+            g, d = room.render(wl.K, T, wl.width, wl.height)
+            out.append((np.clip(g, 0, 255).astype(np.uint8).astype(np.float32),
+                        d.astype(np.float16).astype(np.float32)))
+        return out
+
+    t0 = time.time()
+    gt = wl.poses(n)
+    frames = rendered(gt)
+    if name == "scale":
+        idx = np.arange(0, wl.frames, tool.SCALE_VOC_STEP)
+        voc_frames = rendered(wl.poses()[idx])
+    else:
+        idx = np.arange(0, tool.BENCH_FRAMES, tool.BENCH_VOC_STEP)
+        voc_frames = rendered(tool.bench_poses()[idx])
+    trainer = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=None,
+                                    enable_loop_closing=False)
+    descs = []
+    for (g, d), i in zip(voc_frames, idx):
+        fr = trainer.builder.build(jnp.asarray(g), tool.T0 + i / 30.0, jnp.asarray(d))
+        descs.append(np.asarray(fr.desc)[np.asarray(fr.valid)])
+    voc = vocabulary.train(np.concatenate(descs), k=10, L=4, seed=1)
+    setup_s = time.time() - t0
+
+    rec = _gba_bookkeeping(gba_mod, pose_graph)
+    kinds: list = []
+    for kind in ("points", "keyframes"):
+        fn = getattr(mapstate, f"compact_{kind}")
+        setattr(mapstate, f"compact_{kind}",
+                lambda st, fn=fn, kind=kind: kinds.append(kind) or fn(st))
+    slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc)
+    lc = slam.loop_closer
+    events: list = []
+    correct = lc._correct_loop
+
+    def noted(state, kf, match_kf, *a):
+        fid = np.asarray(state.kf_frame_id)
+        events.append(dict(query_frame=int(fid[kf]), match_frame=int(fid[match_kf]),
+                           inliers=lc.events[-1].n_inliers))
+        return correct(state, kf, match_kf, *a)
+
+    lc._correct_loop = noted
+    stamps = tool.T0 + np.arange(n) / 30.0
+    t0 = time.time()
+    _drive(slam, frames, stamps)
+    valid = np.asarray(slam.map.kf_valid)
+    ts = np.asarray(slam.map.kf_timestamp, np.float64)[valid] + slam.tracker.ts_epoch
+    est = np.linalg.inv(np.asarray(slam.map.kf_pose)[valid])
+    return dict(
+        mode=name, frames=n, n_words=voc.n_words,
+        caps=[cfg.max_keyframes, cfg.max_points, cfg.max_keypoints],
+        lost_frames=[j for j, (_, _, l) in enumerate(slam.tracker.trajectory) if l],
+        keyframes_live=slam.n_keyframes, kf_alloc_watermark=int(slam.tracker.n_kf_watermark),
+        points_live=slam.n_points, kf_ate_m=float(traj_io.ate_rmse(stamps, gt, ts, est)),
+        kf_ate_segments_m=tool.segment_ates(stamps, gt, ts, est), loops=len(events),
+        events=events,
+        gba_applied=rec["applied"], gba_aborted=rec["aborted"],
+        gba_solvers=rec["gba_solvers"], essential_solvers=rec["essential_solvers"],
+        point_compactions=kinds.count("points"), keyframe_compactions=kinds.count("keyframes"),
+        ba_lanes_dropped=slam.tracker.ba_lanes_dropped + slam.mapper.ba_lane_stats()[0],
+        ba_escalations=slam.tracker.ba_escalations,
+        kf_frame_ids=np.asarray(slam.map.kf_frame_id)[valid].tolist(),
+        setup_seconds=setup_s, seconds=time.time() - t0)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-mapping", action="store_true", help="tracking only")
@@ -389,6 +491,13 @@ def main():
     ap.add_argument("--stereo", action="store_true",
                     help="the stereo workload: left and right u8 images, SLAMSystem "
                          "(cfg, STEREO), the vocabulary and loop closing")
+    ap.add_argument("--endurance", action="store_true",
+                    help="tools/endurance.py's 1,200-frame workload (compaction, loops)")
+    ap.add_argument("--scale", action="store_true",
+                    help="the first --frames frames of tools/scale_endurance.py's workload")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="with --scale / --endurance: frames of the trajectory to run "
+                         "(default 1,700 / 1,200)")
     ap.add_argument("--default-caps", action="store_true",
                     help="with --loop or --stereo: SystemConfig's default capacities")
     ap.add_argument("--trace", action="store_true",
@@ -400,6 +509,10 @@ def main():
     ap.add_argument("--fetch-every", type=int, default=1,
                     help="tracker outcome cadence with --loop (JAX default 16)")
     args = ap.parse_args()
+    if args.endurance or args.scale:
+        frames = args.frames or (1700 if args.scale else None)
+        print(json.dumps(_long_run("scale" if args.scale else "endurance", frames)))
+        return
     K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
     poses = synthetic.circle_trajectory(N, radius=0.55, revs=1.30)
     room = synthetic.BoxRoom(half_size=2.0, seed=11)
