@@ -167,6 +167,39 @@ no result):
               optimization, every essential graph on CG and every global-BA
               job on pcg_dual; loops, escalations and dropped lanes printed
               beside JAX's; ms per mapping step beside phase 5's.
+    parallel — the JAX package's parallel/ on torch.distributed (after
+              `scale`), its ranks started as `python3 chip_smoke.py
+              --parallel-rank ...` (never through main()), each killed past
+              PARALLEL_TIMEOUT_S: (a) one NCCL rank on cuda:0 runs the
+              distributed GBA (parallel/dist_gba.distributed_full_ba, 10 LM
+              iterations) on phase 7's saved map (K_cap 64 / P_cap 32,768)
+              and on the scale phase's final map (K_cap 1,536 / P_cap
+              262,144) and the one-process solve of each (global_ba's "pcg"
+              route, the same PCG; its one-hot takes 26 GB at the scale
+              caps); (b) PARALLEL_WORLD gloo ranks,
+              all on cuda:0 (NCCL takes one rank per card), run the same
+              solves and dist_ba (20 LM iterations) on phase 5's captured
+              local-BA window: replicated results bit-equal across ranks,
+              the loop map bit-equal to one rank's, and every solve within
+              PAR_POSE_TOL (poses), PAR_PX_TOL (each live observation's
+              predicted pixel) and PAR_COST_RTOL (cost) of one rank's and of
+              the one-process solve, 3D point differences printed; controls
+              under the same measures, each of which must fail a bound: the
+              input with no solve, and the world-2 solves over a mesh that
+              zeroes rank 0's psum terms or its all-gather blocks; ms per LM
+              iteration; (c) the same ranks each run the
+              live system through the loop slice (one pass from a fresh
+              system) and the kidnap run with phase 7's vocabulary, handed
+              over as a file: GBAJob's multi-rank branch (counted) at the
+              loop, the relocalizer's sharded query (counted) while lost,
+              pose-LM launches on every rank; the ranks agree on every
+              decision and on kf ATE, and match the JAX run on as many
+              virtual devices (JAX_CPU_MULTI): the loop at its frames, the
+              kidnap run relocalized on its frame, kidnap loops at least
+              its, keyframes within 20%, kf ATE within 1 cm; frames/s per
+              rank (two ranks share the card and the host). With 2 or 4
+              cards visible, (b)-(c) run once more over NCCL, one card per
+              rank (not run on one card).
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
@@ -175,7 +208,8 @@ no result):
               host reads (stream syncs) and top device operations (last: a
               profile slows later launches).
 
-The last lines are the loop, mono, stereo, endurance and scale summaries,
+The last lines are the loop, mono, stereo, endurance, scale and parallel
+summaries,
 a JSON record of the kernels
 (`launches` from the loop slice, `launches_by_path` each slice's,
 `launches_batched` the B > 1 launches of the kidnap, reuse, endurance and
@@ -291,6 +325,41 @@ JAX_CPU_SCALE = dict(
     lost_frames=list(range(183, 1173)) + list(range(1445, 1495)), keyframes_live=40,
     kf_alloc_watermark=86, kf_ate_m=0.05399423403513277, loops=0, ba_escalations=61,
     ba_lanes_dropped=0, gba_solvers=[], essential_solvers=[], n_words=9991)
+# the loop slice and the kidnap run on the JAX package with N virtual CPU
+# devices, so that its GBAJob runs parallel/dist_gba.distributed_full_ba and
+# its relocalizer the sharded query of parallel/dist_reloc; the parallel
+# phase's ranks are held to the run of their world size. N = 2:
+# `JAX_PLATFORMS=cpu python tools/jax_cpu_bench_reference.py --loop
+# --devices 2`: gba_solvers ["multi-device"], 1 loop (frames 217 / 37, 962
+# inliers), its job applied, 23 keyframes, 26,168 points, 0 lost, kf ATE
+# 0.009237 m (one device: 0.008675 m); `... --kidnap --devices 2`:
+# relocalized on frame 153, lost on frames 150-219 (one device: 150-218:
+# the sharded query's candidates are not the single-device detector's), 22
+# keyframes, 25,053 points, no loop, kf ATE 0.023583 m. N = 4 (`--loop
+# --devices 4`, `--kidnap --devices 4`): every number as at N = 2
+_JAX_CPU_2_4 = dict(loop_events=[(217, 37)], loop_keyframes=23,
+                    loop_kf_ate_m=0.009236682218804098, kidnap_reloc_frame=153,
+                    kidnap_keyframes=22, kidnap_kf_ate_m=0.02358268285668361, kidnap_loops=0)
+JAX_CPU_MULTI = {2: _JAX_CPU_2_4, 4: _JAX_CPU_2_4}
+PARALLEL_WORLD = 2  # ranks of the parallel phase's gloo launch, sharing the card
+PARALLEL_TIMEOUT_S = 600  # a launch of ranks is killed past this
+PARALLEL_GBA_ITERS = 10  # GBAJob's LM iterations
+PARALLEL_BA_ITERS = 20  # dist_ba on the local-BA window: converged iterates
+# the distributed GBA / BA at n ranks against 1 rank, and against the
+# one-process solve of the same map by global_ba's "pcg" route (the same
+# Schur-diagonal PCG, its camera sums over the point-major lanes where the
+# distributed one sums over the camera-major ones, as JAX's does): the
+# poses, each live observation's predicted pixel and the cost. 3D points
+# are printed, not held: a point seen from two nearby keyframes slides
+# along its ray at no cost, and on the scale map (lost stretches, weakly
+# joined segments) a segment's cameras and points move together. Each
+# bound lies between the sound solves' largest gap and the smallest gap of
+# a broken solve that only that measure catches (H100, PERF.md section 6):
+# sound at most 4.08e-3 in pose (scale map), 0.0368 px, 3.8e-5 in cost;
+# the input with no solve 6.0e-3 in pose (the window), 0.233 px and
+# 6.2e-4 in cost (the scale map); rank 0's psum terms zeroed leaves the
+# loop map's steps as they were, 0.77 off in cost
+PAR_POSE_TOL, PAR_PX_TOL, PAR_COST_RTOL = 5e-3, 0.1, 1.5e-4
 RENDER_WORKERS = 8  # processes that render the long runs' frames
 KIDNAP_AT, KIDNAP_BLANKS, KIDNAP_RESUME = 150, 3, 100
 MAP_STEP_CAPTURE = 10  # the mapping step whose input phase 6 replays
@@ -2276,7 +2345,7 @@ def phase_endurance(dev, voc) -> dict:
     return res
 
 
-def phase_scale(dev, map_step_ms: tuple) -> dict:
+def phase_scale(dev, map_step_ms: tuple) -> tuple[dict, object]:
     """The reference scale (tools/scale_endurance.py's configuration) for
     the first SCALE_FRAMES frames of its 8,000-frame sweep: 320x240, 1,000
     features, max_keyframes 1,536, max_points 262,144, max_keypoints 1,024,
@@ -2317,7 +2386,423 @@ def phase_scale(dev, map_step_ms: tuple) -> dict:
     if set(res["essential_solvers"]) - {"cg"} or set(res["gba_solvers"]) - {"pcg_dual"}:
         raise AssertionError(f"essential graphs {res['essential_solvers']}, GBA jobs "
                              f"{res['gba_solvers']}: expected cg and pcg_dual")
+    return res, slam
+
+
+def _capture_ba_window(mapper, captured) -> object:
+    """The local-BA window (BAProblem) of the captured mapping step: the
+    step replayed with local_bundle_adjustment recording its problem."""
+    from orbslam_mapsave_tpu_torch.optim import local_ba
+
+    probs, solve = [], local_ba.local_bundle_adjustment
+
+    def recorded(cam, prob, *a, **k):
+        probs.append(prob)
+        return solve(cam, prob, *a, **k)
+
+    with _patched([(local_ba, "local_bundle_adjustment", recorded)]):
+        mapper._map_step(*captured)
+    if not probs:
+        raise AssertionError("the captured mapping step ran no local BA")
+    return probs[0]
+
+
+def parallel_inputs(tmp: Path, seq, voc, maps: dict, window, cam) -> Path:
+    """Write what the ranks read into tmp/parallel: the maps
+    ({name: (MapState, Camera, inv_level_sigma2, one-process solver)}),
+    the local-BA window, the bench sequence and the vocabulary."""
+    from orbslam_mapsave_tpu_torch.io import mapio
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    d = tmp / "parallel"
+    d.mkdir(exist_ok=True)
+    meta = {"maps": {}, "cam": list(cam)}
+    for name, (state, mcam, isig, solver) in maps.items():
+        mapio.save_map(d / f"{name}_map.npz", state)
+        meta["maps"][name] = dict(cam=list(mcam), isig=torch.as_tensor(isig).tolist(),
+                                  solver=solver)
+    np.savez(d / "window.npz", **{k: v.cpu().numpy() for k, v in window._asdict().items()})
+    poses, frames = seq
+    np.savez(d / "seq.npz", poses=poses, gray=np.stack([f[0] for f in frames]),
+             depth=np.stack([f[1] for f in frames]))
+    vocabulary.save_binary(d / "voc.bin", voc)
+    (d / "inputs.json").write_text(json.dumps(meta))
+    return d
+
+
+def _launch_ranks(d: Path, world: int, backend: str, devices: list[str], tasks: list[str],
+                  tag: str) -> list[dict]:
+    """Start `world` ranks of this script (`--parallel-rank`), each with the
+    env triplet on a free port of 127.0.0.1, the backend and its device;
+    wait for all of them (killed past PARALLEL_TIMEOUT_S). Returns each
+    rank's results; any rank's failure raises with its output's tail."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       NUM_PROCESSES=str(world), PROCESS_ID=str(r))
+            logf = open(d / f"{tag}_rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(d),
+                 tag, backend, devices[r], ",".join(tasks)],
+                env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+        t0 = time.perf_counter()
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in range(world):
+        text = (d / f"{tag}_rank{r}.log").read_text()
+        keep = text[-6000:] if r in failed else "\n".join(
+            ln for ln in text.splitlines() if ln.startswith(("[parallel]", "[gloo")))
+        log(f"[parallel] {tag} rank {r} of {world} (exit {procs[r][0].returncode}):\n{keep}")
+    if failed:
+        raise AssertionError(f"{tag}: ranks {failed} of {world} failed")
+    out = []
+    for r in range(world):
+        res = json.loads((d / f"{tag}_rank{r}.json").read_text())
+        res["arrays"] = dict(np.load(d / f"{tag}_rank{r}.npz"))
+        out.append(res)
+    return out
+
+
+def _gaps(got: dict, ref: dict, name: str, ref_name: str) -> dict:
+    """`name`'s solve in got against `ref_name`'s in ref: max |difference|
+    of the poses (or cameras), of each live observation's predicted pixel
+    and of the points, and the cost's relative difference."""
+    def gap(k):
+        a, b = got[f"{name}_{k}"].astype(np.float64), ref[f"{ref_name}_{k}"]
+        return float(np.max(np.abs(a - b))) if a.size else 0.0
+
+    cost, ref_cost = float(got[f"{name}_cost"]), float(ref[f"{ref_name}_cost"])
+    return dict(pose=gap("poses"), px=gap("px"), pts_m=gap("pts"),
+                cost=abs(cost - ref_cost) / max(abs(ref_cost), 1e-12))
+
+
+def _past_bounds(gaps: dict) -> dict:
+    return {k: [gaps[k], t] for k, t in (("pose", PAR_POSE_TOL), ("px", PAR_PX_TOL),
+                                         ("cost", PAR_COST_RTOL)) if not gaps[k] <= t}
+
+
+def _vs_solution(got: dict, ref: dict, name: str, ref_name: str, label: str,
+                 exact: bool = False) -> dict:
+    """The gaps (`_gaps`) logged, then held to PAR_POSE_TOL / PAR_PX_TOL /
+    PAR_COST_RTOL (the points' 3D difference is not held), or with `exact`
+    every gap, the points' too, to 0."""
+    out = _gaps(got, ref, name, ref_name)
+    log(f"[parallel] {label}: " + json.dumps(out))
+    if exact and any(out.values()):
+        raise AssertionError(f"{label}: not bit-equal {out}")
+    bad = _past_bounds(out)
+    if bad:
+        raise AssertionError(f"{label}: past the tolerance {bad}")
+    return out
+
+
+def _control(got: dict, ref: dict, name: str, ref_name: str, label: str) -> dict:
+    """A broken solve under the same measures as `_vs_solution`, logged;
+    `run_parallel` fails if it is within every bound (the bounds could not
+    tell it from a sound solve)."""
+    out = _gaps(got, ref, name, ref_name)
+    log(f"[parallel] control, {label}: " + json.dumps(out)
+        + f"; past the bounds on {sorted(_past_bounds(out))}")
+    return out
+
+
+def _lane_px(cam, poses, pts, lane_cam, live) -> torch.Tensor:
+    """Each live lane's predicted pixel (n, 2): its point projected by its
+    camera's pose."""
+    T = poses[torch.clamp(lane_cam, min=0).long()]
+    pc = torch.sum(T[..., :3, :3] * pts[:, None, None, :], dim=-1) + T[..., :3, 3]
+    uv = torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
+                      cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], dim=-1)
+    return uv[live]
+
+
+def _ranks_equal(ranks: list[dict], keys) -> None:
+    """Replicated results: bit-equal on every rank."""
+    for r, res in enumerate(ranks[1:], 1):
+        for k in keys:
+            if not np.array_equal(res["arrays"][k], ranks[0]["arrays"][k]):
+                raise AssertionError(f"rank {r}'s {k} differs from rank 0's")
+
+
+def _check_live(ranks: list[dict], ref: dict) -> dict:
+    """Step (c): the ranks agree with each other on every decision, took
+    the multi-rank branches, and match `ref`, the JAX run on as many
+    devices (JAX_CPU_MULTI)."""
+    keys = ("loop_events", "loop_inliers", "loop_keyframes", "loop_kf_frames", "loop_kf_ate_m",
+            "kidnap_reloc_frame", "kidnap_lost_frames", "kidnap_keyframes", "kidnap_kf_ate_m",
+            "kidnap_loops")
+    for r, res in enumerate(ranks[1:], 1):
+        differ = [k for k in keys if res[k] != ranks[0][k]]
+        if differ:
+            raise AssertionError(f"rank {r} differs from rank 0 on {differ}: "
+                                 + json.dumps({k: [res[k], ranks[0][k]] for k in differ}))
+    got = ranks[0]
+    for res in ranks:
+        if res["loop_gba_multi_rank"] < 1 or res["loop_gba_applied"] != res["loop_loops"]:
+            raise AssertionError(f"rank {res['rank']}: {res['loop_gba_multi_rank']} multi-rank "
+                                 f"GBA jobs, {res['loop_gba_applied']} applied for "
+                                 f"{res['loop_loops']} loops")
+        if res["kidnap_sharded_queries"] < 1:
+            raise AssertionError(f"rank {res['rank']}: the relocalizer ran no sharded query")
+        if res["kidnap_launches"] < 1:
+            raise AssertionError(f"rank {res['rank']}: no pose-LM launch in the kidnap run")
+    if [tuple(e) for e in got["loop_events"]] != ref["loop_events"]:
+        raise AssertionError(f"loops at {got['loop_events']}, JAX {ref['loop_events']}")
+    _check_quality(dict(keyframes=got["loop_keyframes"], kf_ate_m=got["loop_kf_ate_m"]),
+                   ref["loop_keyframes"], ref["loop_kf_ate_m"])
+    if got["kidnap_reloc_frame"] != ref["kidnap_reloc_frame"]:
+        raise AssertionError(f"kidnap relocalized on frame {got['kidnap_reloc_frame']}, JAX "
+                             f"on {ref['kidnap_reloc_frame']}")
+    if got["kidnap_loops"] < ref["kidnap_loops"]:
+        raise AssertionError(f"{got['kidnap_loops']} kidnap loops, JAX {ref['kidnap_loops']}")
+    _check_quality(dict(keyframes=got["kidnap_keyframes"], kf_ate_m=got["kidnap_kf_ate_m"]),
+                   ref["kidnap_keyframes"], ref["kidnap_kf_ate_m"])
+    return {k: got[k] for k in keys}
+
+
+def run_parallel(d: Path, world: int, backend: str, devices: list[str], live: bool) -> dict:
+    """Steps (a)-(c) of the parallel phase over the inputs in d: one NCCL
+    rank on devices[0] (the distributed GBA on each map and the one-process
+    solve of the same map), then `world` ranks on `backend` (the same
+    solves and dist_ba on the local-BA window, equal to one rank's; with
+    `live`, the loop slice and the kidnap run of the live system on every
+    rank). Returns the phase's numbers."""
+    meta = json.loads((d / "inputs.json").read_text())
+    one = _launch_ranks(d, 1, "nccl", devices[:1], ["solve", "reference"], "world1")[0]
+    a1 = one["arrays"]
+    res = {"world1": {k: v for k, v in one.items() if k != "arrays"}, "vs_one_process": {},
+           "controls": {}}
+    for name, m in meta["maps"].items():
+        res["vs_one_process"][name] = _vs_solution(
+            a1, a1, name, "ref_" + name,
+            f"{name} map, world 1 (nccl) vs the one-process {m['solver']} solve")
+        res["controls"]["nosolve_" + name] = _control(
+            a1, a1, "nosolve_" + name, "ref_" + name,
+            f"{name} map with no solve vs the one-process {m['solver']} solve")
+    res["controls"]["nosolve_window"] = _control(
+        a1, a1, "nosolve_window", "window", "the window with no solve vs world 1's solve")
+    tasks = ["solve", "control"] + (["live"] if live else [])
+    ranks = _launch_ranks(d, world, backend, devices, tasks, f"world{world}")
+    keys = [f"{n}_{f}" for n in meta["maps"] for f in ("poses", "pts", "px", "cost")]
+    _ranks_equal(ranks, keys + ["window_poses", "window_pts", "window_cost"])
+    an = ranks[0]["arrays"]
+    # the loop map's point blocks split where its sums' trees do: bit-equal
+    res["vs_world1"] = {
+        name: _vs_solution(an, a1, name, name, f"{name}, world {world} ({backend}) vs world 1",
+                           exact=name == "loop")
+        for name in list(meta["maps"]) + ["window"]}
+    for name in list(meta["maps"]) + ["window"]:
+        for c, what in (("droppsum", "psum terms"), ("dropgather", "all-gather blocks")):
+            res["controls"][f"{c}_{name}"] = _control(
+                an, a1, f"{c}_{name}", name,
+                f"{name}, world {world} ({backend}) with rank 0's {what} zeroed vs world 1")
+    res[f"world{world}"] = [{k: v for k, v in r.items() if k != "arrays"} for r in ranks]
+    if live:
+        if world not in JAX_CPU_MULTI:
+            raise AssertionError(f"no JAX run on {world} devices to hold {world} ranks to")
+        res["live"] = _check_live(ranks, JAX_CPU_MULTI[world])
+        log("[parallel] live system, rank 0 (the ranks agree): " + json.dumps(res["live"]))
+    blind = {k: v for k, v in res["controls"].items() if not _past_bounds(v)}
+    if blind:
+        raise AssertionError(f"controls within every bound: {blind}")
     return res
+
+
+def phase_parallel(d: Path) -> dict:
+    """The distributed solvers and the live system's multi-rank branches
+    on the card: (a) one NCCL rank, (b)-(c) PARALLEL_WORLD gloo ranks on
+    cuda:0 (NCCL takes one rank per card)."""
+    t0 = time.perf_counter()
+    res = run_parallel(d, PARALLEL_WORLD, "gloo", ["cuda:0"] * PARALLEL_WORLD, live=True)
+    # with more cards, the largest world that a JAX run is held for once
+    # more over NCCL, one card per rank
+    n = max((w for w in JAX_CPU_MULTI if w <= torch.cuda.device_count()), default=1)
+    if n > 1:
+        res["nccl_cards"] = run_parallel(d, n, "nccl", [f"cuda:{r}" for r in range(n)],
+                                         live=True)
+    res["seconds"] = time.perf_counter() - t0
+    w1 = res["world1"]
+    log("[parallel] ms per LM iteration (table build included; device sync), world 1 nccl: "
+        + json.dumps({k: w1[k] for k in w1 if k.endswith("ms_per_iter")}))
+    for r in res[f"world{PARALLEL_WORLD}"]:
+        log(f"[parallel] world {PARALLEL_WORLD} gloo rank {r['rank']} on {r['device']}: "
+            + json.dumps({k: r[k] for k in r if k.endswith(("ms_per_iter", "fps"))}))
+    log(f"[parallel] phase took {res['seconds']:.1f} s")
+    return res
+
+
+def _rank_solves(task: set, mesh, d: Path, meta: dict, dev, out: dict, arrays: dict):
+    """A rank's solves: the distributed GBA on each saved map, with the
+    one-process solve ("reference", one rank) beside it, and dist_ba on the
+    local-BA window. The controls, each under the same name with a prefix:
+    "nosolve_" (with "reference"), the input map or window through 0 LM
+    iterations; with "control", the same solves over a broken mesh that
+    zeroes rank 0's term of every psum ("droppsum_") or rank 0's block of
+    every all-gather ("dropgather_"). Rank 0 holds the live rows: the maps'
+    keyframes and points and the window's landmarks fill the first slots."""
+    from orbslam_mapsave_tpu_torch.geometry import projection
+    from orbslam_mapsave_tpu_torch.io import mapio
+    from orbslam_mapsave_tpu_torch.optim import global_ba, local_ba
+    from orbslam_mapsave_tpu_torch.parallel import dist_ba, dist_gba
+    from orbslam_mapsave_tpu_torch.parallel import mesh as pmesh
+
+    class DropPsum(pmesh.Mesh):
+        def psum(self, x):
+            return super().psum(torch.zeros_like(x) if self.rank == 0 else x)
+
+    class DropGather(pmesh.Mesh):
+        def all_gather(self, x):
+            return super().all_gather(torch.zeros_like(x) if self.rank == 0 else x)
+
+    controls = {}  # prefix: (mesh, whether it iterates)
+    if "reference" in task:
+        controls["nosolve"] = (mesh, False)
+    if "control" in task:
+        for c, cls in (("droppsum", DropPsum), ("dropgather", DropGather)):
+            controls[c] = (cls(mesh.size, mesh.rank, mesh.device, mesh.grouped), True)
+    for i, (name, m) in enumerate(meta["maps"].items()):
+        state = mapio.load_map(d / f"{name}_map.npz", dev)
+        cam = projection.Camera(*m["cam"])
+        isig = torch.tensor(m["isig"], dtype=torch.float32, device=dev)
+        if i == 0:  # untimed: the communicator's and the solver's first calls
+            dist_gba.distributed_full_ba(cam, state, isig, mesh, n_iters=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, pts, cost = dist_gba.distributed_full_ba(cam, state, isig, mesh,
+                                                        n_iters=PARALLEL_GBA_ITERS)
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_iter"] = 1e3 * (time.perf_counter() - t0) / PARALLEL_GBA_ITERS
+        tb = global_ba.build_tables(state, isig)
+        arrays.update({f"{name}_poses": poses, f"{name}_pts": pts, f"{name}_cost": cost,
+                       f"{name}_px": _lane_px(cam, poses, pts, tb.po_cam, tb.po_valid)})
+        for c, (cmesh, solve) in controls.items():
+            cp, cx, cc = dist_gba.distributed_full_ba(
+                cam, state, isig, cmesh, n_iters=PARALLEL_GBA_ITERS if solve else 0)
+            arrays.update({f"{c}_{name}_poses": cp, f"{c}_{name}_pts": cx,
+                           f"{c}_{name}_cost": cc,
+                           f"{c}_{name}_px": _lane_px(cam, cp, cx, tb.po_cam, tb.po_valid)})
+        if "reference" in task:
+            t0 = time.perf_counter()
+            rp, rx, rc = global_ba.full_bundle_adjustment(
+                cam, state, isig, n_iters=PARALLEL_GBA_ITERS, solver=m["solver"])
+            torch.cuda.synchronize()
+            out[f"ref_{name}_ms_per_iter"] = (1e3 * (time.perf_counter() - t0)
+                                              / PARALLEL_GBA_ITERS)
+            arrays.update({f"ref_{name}_poses": rp, f"ref_{name}_pts": rx,
+                           f"ref_{name}_cost": rc,
+                           f"ref_{name}_px": _lane_px(cam, rp, rx, tb.po_cam, tb.po_valid)})
+        log(f"[parallel] {name} map (K_cap {state.kf_capacity}, P_cap {state.pt_capacity}, "
+            f"{int(state.n_kf)} / {int(state.n_pt)} allocated): cost {float(cost):.6g}, "
+            f"{out[f'{name}_ms_per_iter']:.1f} ms per LM iteration")
+        del state
+    w = np.load(d / "window.npz")
+    prob = local_ba.BAProblem(**{k: torch.from_numpy(w[k]).to(dev) for k in w.files})
+    cam = projection.Camera(*meta["cam"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = dist_ba.make_distributed_ba(cam, mesh, n_iters=PARALLEL_BA_ITERS)(
+        dist_ba.shard_problem(prob, mesh))
+    torch.cuda.synchronize()
+    out["window_ms_per_iter"] = 1e3 * (time.perf_counter() - t0) / PARALLEL_BA_ITERS
+    out["window_shape"] = list(prob.obs_cam.shape) + [prob.cam_pose.shape[0]]
+    struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
+    arrays.update(window_poses=r.cam_pose, window_pts=r.pt_pos, window_cost=r.chi2,
+                  window_px=_lane_px(cam, r.cam_pose, r.pt_pos, prob.obs_cam, struct))
+    for c, (cmesh, solve) in controls.items():
+        r = dist_ba.make_distributed_ba(cam, cmesh, n_iters=PARALLEL_BA_ITERS if solve else 0)(
+            dist_ba.shard_problem(prob, cmesh))
+        arrays.update({f"{c}_window_poses": r.cam_pose, f"{c}_window_pts": r.pt_pos,
+                       f"{c}_window_cost": r.chi2,
+                       f"{c}_window_px": _lane_px(cam, r.cam_pose, r.pt_pos, prob.obs_cam,
+                                                  struct)})
+
+
+def _rank_live(d: Path, dev, out: dict):
+    """A rank's live system: the loop slice from a fresh system (one pass)
+    and the kidnap run, with the GBA jobs' distributed solves and the
+    relocalizer's sharded queries counted."""
+    from orbslam_mapsave_tpu_torch.optim import pose_opt_cuda
+    from orbslam_mapsave_tpu_torch.parallel import dist_gba, dist_reloc
+    from orbslam_mapsave_tpu_torch.vocab import vocabulary
+
+    z = np.load(d / "seq.npz")
+    seq = (z["poses"], list(zip(z["gray"], z["depth"])))
+    voc = vocabulary.load_binary(d / "voc.bin")
+    count = {"gba": 0, "reloc": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            count[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    with _patched([(dist_gba, "distributed_full_ba",
+                    counted("gba", dist_gba.distributed_full_ba)),
+                   (dist_reloc, "shard_store", counted("reloc", dist_reloc.shard_store))]):
+        slam = _bench_system(dev, True, vocabulary=voc)
+        lres = _run_slice(slam, seq, "parallel loop", warmup=0)
+        lc = slam.loop_closer
+        fid = slam.map.kf_frame_id.cpu().numpy()
+        out.update(loop_fps=lres["fps"], loop_events=_loop_events(slam),
+                   loop_inliers=[e.n_inliers for e in lc.events], loop_loops=len(lc.events),
+                   loop_keyframes=lres["keyframes"], loop_kf_ate_m=lres["kf_ate_m"],
+                   loop_kf_frames=fid[slam.map.kf_valid.cpu().numpy()].tolist(),
+                   loop_gba_applied=lc.gba_applied, loop_gba_multi_rank=count["gba"])
+        del slam, lc
+        pose_opt_cuda.reset_launches()
+        kres = phase_kidnap(dev, seq, voc)
+        out.update(kidnap_fps=kres["frames"] / kres["seconds"],
+                   kidnap_reloc_frame=kres["reloc_frame"],
+                   kidnap_lost_frames=kres["lost_frames"], kidnap_keyframes=kres["keyframes"],
+                   kidnap_kf_ate_m=kres["kf_ate_m"], kidnap_loops=kres["loops"],
+                   kidnap_launches=kres["launches"], kidnap_sharded_queries=count["reloc"])
+
+
+def parallel_rank(d: Path, tag: str, backend: str, device: str, tasks: str) -> int:
+    """One rank of the parallel phase (a process of its own, started by
+    `_launch_ranks` with the env triplet): joins the process group and
+    runs its tasks ("solve", "reference", "live"); writes
+    d/{tag}_rank{r}.json and .npz."""
+    import os
+
+    from orbslam_mapsave_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device)
+    world = int(os.environ["NUM_PROCESSES"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    if not pmesh.initialize_distributed(dev, backend=backend):
+        raise RuntimeError("COORDINATOR_ADDRESS is not set")
+    mesh = pmesh.make_mesh(device=dev)
+    task = set(tasks.split(","))
+    meta = json.loads((d / "inputs.json").read_text())
+    out = dict(rank=mesh.rank, world=mesh.size, backend=backend, device=str(dev),
+               card=torch.cuda.get_device_name(dev))
+    arrays: dict = {}
+    _rank_solves(task, mesh, d, meta, dev, out, arrays)
+    if "live" in task:
+        _rank_live(d, dev, out)
+    np.savez(d / f"{tag}_rank{mesh.rank}.npz",
+             **{k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in arrays.items()})
+    (d / f"{tag}_rank{mesh.rank}.json").write_text(json.dumps(out))
+    log("[parallel] rank done: " + json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def _profile_ranges(ranges: list) -> dict:
@@ -2442,7 +2927,15 @@ def main() -> int:
             phase_cli(dev, seq, lc.voc, map_path, Path(tmp))
             apps = phase_apps(dev, seq, Path(tmp))
             endu = phase_endurance(dev, lc.voc)
-        scale = phase_scale(dev, (mres["map_step_p50_ms"], mres["map_step_p99_ms"]))
+            scale, sslam = phase_scale(dev, (mres["map_step_p50_ms"], mres["map_step_p99_ms"]))
+            from orbslam_mapsave_tpu_torch.io import mapio
+
+            pdir = parallel_inputs(Path(tmp), seq, lc.voc, {
+                "loop": (mapio.load_map(map_path, dev), lc.cam, lc._t(dev)[1], "pcg"),
+                "scale": (sslam.map, sslam.cam, sslam.builder.inv_level_sigma2, "pcg")},
+                _capture_ba_window(mapper, captured), lc.cam)
+            del sslam
+            par = phase_parallel(pdir)
         phase_profile(dev)
         phase_profile_map_step(mapper, captured)
         phase_profile_loop(lc, lcap, dev)
@@ -2475,6 +2968,15 @@ def main() -> int:
         "frames", "fps", "p50_ms", "p99_ms", "max_ms", "loops", "keyframes_live",
         "kf_alloc_watermark", "points_live", "kf_ate_m", "lost_stretches", "map_step_p50_ms",
         "map_step_p99_ms", "ba_escalations", "ba_lanes_dropped", "peak_memory_bytes")}))
+    log("[chip_smoke] parallel: " + json.dumps({
+        "seconds": par["seconds"], "vs_one_process": par["vs_one_process"],
+        "vs_world1": par["vs_world1"], "controls": par["controls"], "live": par["live"],
+        "nccl_cards": {k: par["nccl_cards"][k] for k in ("vs_world1", "controls", "live")}
+        if "nccl_cards" in par else None,
+        "world1": {k: v for k, v in par["world1"].items() if k.endswith("ms_per_iter")},
+        "ranks": [{k: v for k, v in r.items() if k.endswith(("ms_per_iter", "fps", "device",
+                                                              "backend", "launches"))}
+                  for r in par[f"world{PARALLEL_WORLD}"]]}))
     print(json.dumps({"kernels": [{
         "name": "pose_lm",
         "route": "cuda",
@@ -2497,7 +2999,9 @@ def main() -> int:
                              "kidnap": kid["launches"], "reuse": reu["launches"],
                              "stereo": st["launches"],
                              "apps": apps.get("run_slam", {}).get("launches"),
-                             "endurance": endu["launches"], "scale": scale["launches"]},
+                             "endurance": endu["launches"], "scale": scale["launches"],
+                             "parallel_kidnap_ranks": [r["kidnap_launches"] for r in
+                                                       par[f"world{PARALLEL_WORLD}"]]},
         "batched_B": reu["batched_launch"]["B"],
         "batched_ms": reu["batched_launch"]["ms"],
         "batched_graph_ms": reu["batched_launch"]["graph_ms"],
@@ -2526,4 +3030,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of the parallel phase
+        sys.exit(parallel_rank(Path(sys.argv[2]), *sys.argv[3:7]))
     sys.exit(main())

@@ -1,13 +1,19 @@
 """Global-BA job: snapshot, optimize, propagate corrections forward.
 
-Port of `orbslam_mapsave_tpu/pipeline/gba.py`, the single-device path
+Port of `orbslam_mapsave_tpu/pipeline/gba.py`
 (`LoopClosing::RunGlobalBundleAdjustment`, `src/LoopClosing.cc:643-786`):
 the job takes the map at a loop event, the host pumps its LM iterations a
 few per frame while tracking and mapping extend the map, and `apply`
 merges the result into the CURRENT map — keyframes and points allocated
 after the snapshot (slots >= the snapshot counts; allocation is monotone)
-move with their spanning-tree parent / reference keyframe. The
-multi-device branch belongs to `parallel/`, which is not ported.
+move with their spanning-tree parent / reference keyframe.
+
+In a process group of n > 1 ranks whose size divides both capacities (the
+counterpart of the JAX version's `len(jax.devices()) > 1`), the job runs
+the keyframe-block sharded solver `parallel/dist_gba.distributed_full_ba`
+over the ranks at construction, as JAX does: every rank builds the job at
+the same loop event, so all of them reach its collectives. That job is not
+incremental (`pump` has nothing to run, `done` is true at once).
 """
 
 from __future__ import annotations
@@ -16,11 +22,14 @@ import torch
 
 from ..geometry import projection, se3
 from ..optim import global_ba
+from ..parallel import dist_gba
+from ..parallel import mesh as pmesh
 from ..slammap import mapstate as ms
 
 
 class GBAJob:
-    """One in-flight global bundle adjustment over a map snapshot."""
+    """One in-flight global bundle adjustment over a map snapshot: pumped
+    LM iterations in one process, the distributed solve across ranks."""
 
     def __init__(self, state: ms.MapState, cam: projection.Camera, inv_level_sigma2,
                  n_iters: int = 10):
@@ -29,6 +38,17 @@ class GBAJob:
         self.aborted = False
         self.applied = False
         self._cam = cam
+        isig = torch.as_tensor(inv_level_sigma2, dtype=torch.float32, device=state.device)
+        n = pmesh.world_size()
+        self._incremental = not (n > 1 and state.kf_capacity % n == 0
+                                 and state.pt_capacity % n == 0)
+        if not self._incremental:
+            self._solver = "multi-rank"
+            mesh = pmesh.make_mesh(device=state.device)
+            self.kf_pose_gba, self.pt_pos_gba, self.cost = dist_gba.distributed_full_ba(
+                cam, state, isig, mesh, n_iters=n_iters)
+            self.iters_left = 0
+            return
         # the solver rule of the JAX version: memory is capacity-driven
         # (the (P,O,K) one-hot), quality picks among the affordable solvers
         oh_bytes = state.pt_capacity * global_ba.O_GBA * state.kf_capacity * 4
@@ -38,7 +58,6 @@ class GBAJob:
             self._solver = "dense"
         else:
             self._solver = "pcg"
-        isig = torch.as_tensor(inv_level_sigma2, dtype=torch.float32, device=state.device)
         self._tb, self._carry = global_ba.gba_init(cam, state, isig, solver=self._solver)
         self.iters_left = n_iters
 
@@ -75,11 +94,13 @@ class GBAJob:
         keyframe's before/after poses (`:760-776`)."""
         if self.aborted:
             return state
-        self.finish()
-        poses, pts = self._carry[0], self._carry[1]
-        # f32 exp()@pose chains drift off SO(3)
+        if self._incremental:
+            self.finish()
+            # f32 exp()@pose chains drift off SO(3)
+            self.kf_pose_gba = se3.orthonormalize(self._carry[0])
+            self.pt_pos_gba = self._carry[1]
         self.applied = True
-        return _apply_device(state, se3.orthonormalize(poses), pts,
+        return _apply_device(state, self.kf_pose_gba, self.pt_pos_gba,
                              self.snap_n_kf, self.snap_n_pt)
 
 

@@ -25,8 +25,10 @@ The accepted result is the one the full batch would give.
 RANSAC draws its hypotheses from a `torch.Generator` per candidate, seeded
 from the frame id and the candidate's keyframe slot (the JAX PRNG stream
 cannot be reproduced); `batch` takes them as an argument instead, so the
-tests hand both sides JAX's draws. The multi-device retrieval of the JAX
-version (`parallel/dist_reloc`) is not ported.
+tests hand both sides JAX's draws. In a process group of n > 1 ranks whose
+size divides the store's rows, the candidates come from the sharded query
+of `parallel/dist_reloc` (the JAX version's multi-device branch), with its
+own gates: no covisibility-group accumulation, a per-shard top-k.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import torch
 from ..geometry import projection
 from ..ops import epnp, hamming, matching
 from ..optim import pose_opt
+from ..parallel import dist_reloc
+from ..parallel import mesh as pmesh
 from ..slammap import mapstate as ms
 from ..vocab import database, vocabulary
 
@@ -89,6 +93,7 @@ class Relocalizer:
         self.bow_store_ref = bow_store_ref  # callable -> SparseBowStore or None
         self.max_candidates = max_candidates
         self._tables: dict = {}
+        self._dist = None  # (mesh, sharded query) of the current world size
 
     def _t(self, dev):
         """(level_sigma2, inv_level_sigma2, scale_factors, bounds) on dev."""
@@ -100,12 +105,16 @@ class Relocalizer:
     def candidates(self, state: ms.MapState, frame) -> list[int]:
         """Keyframe slots to try, best first: BoW retrieval sorted by score
         (at most max_candidates) when a vocabulary and a store exist, else
-        the newest valid keyframes (`relocalization.py:168-209`)."""
+        the newest valid keyframes (`relocalization.py:168-209`). Across
+        ranks the retrieval is the sharded query (`relocalization.py:178-196`)."""
         store = self.bow_store_ref() if self.bow_store_ref else None
         if self.voc is not None and store is not None:
             out = self.transform(frame.desc, frame.valid)
             q_word, q_weight = vocabulary.sparse_bow(out["word"], out["weight"],
                                                      store.word.shape[1])
+            n = pmesh.world_size()
+            if n > 1 and store.word.shape[0] % n == 0:
+                return self._sharded_candidates(store, state, q_word, q_weight, n)
             keep, scores = database.detect_relocalization_candidates_sparse(
                 store, state, q_word, q_weight)
             cands = np.nonzero(keep.cpu().numpy())[0]
@@ -113,6 +122,26 @@ class Relocalizer:
             return [int(c) for c in cands[order][: self.max_candidates]]
         valid = np.nonzero(state.kf_valid.cpu().numpy())[0]
         return [int(k) for k in valid[-self.max_candidates:][::-1]]
+
+    def _sharded_candidates(self, store, state, q_word, q_weight, n: int) -> list[int]:
+        """The sharded query's slots >= 0, by score, at most max_candidates;
+        the query is built once per world size. Every rank shards its own
+        store, so the ranks' stores and queries are checked equal first."""
+        if self._dist is None or self._dist[0].size != n:
+            mesh = pmesh.make_mesh(device=store.word.device)
+            self._dist = (mesh, dist_reloc.make_distributed_query(mesh,
+                                                                  top_k=self.max_candidates))
+        mesh, query = self._dist
+        pmesh.check_replicated(mesh, "the BoW store, the live keyframes and the query",
+                               torch.sum(store.word.double()), torch.sum(store.weight.double()),
+                               torch.sum(state.kf_valid), torch.sum(q_word.double()),
+                               torch.sum(q_weight.double()))
+        slots, scores = query(dist_reloc.shard_store(store, mesh), state.kf_valid,
+                              q_word, q_weight)
+        slots, s = slots.cpu().numpy(), scores.cpu().numpy()
+        keep = slots >= 0
+        order = np.argsort(-s[keep])
+        return [int(c) for c in slots[keep][order][: self.max_candidates]]
 
     def draw_hypotheses(self, frame_id: int, cands: list[int],
                         valid: torch.Tensor) -> torch.Tensor:

@@ -287,8 +287,10 @@ from orbslam_mapsave_tpu.io import synthetic
 render, seen = synthetic.BoxRoom.render, {}
 
 def first_two(room, K, T, w, h):  # the first two frames of a sequence, the rest 1x1 blanks
-    seen[id(room)] = seen.get(id(room), 0) + 1
-    if seen[id(room)] <= 2:
+    # keyed by the room itself, which the dict keeps alive: keyed by id(), a
+    # second tool's room could reuse the freed first room's id and render blanks
+    seen[room] = seen.get(room, 0) + 1
+    if seen[room] <= 2:
         return render(room, K, T, w, h)
     return np.zeros((1, 1), np.float32), np.zeros((1, 1), np.float32)
 
@@ -316,10 +318,13 @@ def test_tool_sequences_equal_jax_tools(tmp_path):
     import scale_endurance_torch as tool
 
     out = tmp_path / "jax_tools.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", SCALE_FRAMES="8000",
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env.update(JAX_PLATFORMS="cpu", SCALE_FRAMES="8000",
                JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache"))
-    subprocess.run([sys.executable, "-c", REFERENCE_SEQUENCES, str(ROOT), str(out)],
-                   check=True, env=env, capture_output=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", REFERENCE_SEQUENCES, str(ROOT), str(out)],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, (f"the JAX tools' subprocess exited {proc.returncode}:\n"
+                                  f"{proc.stderr[-4000:]}")
     ref = np.load(out)
     for wl in (tool.ENDURANCE, tool.SCALE):
         np.testing.assert_array_equal(wl.K, ref[wl.name + "_K"])

@@ -4,7 +4,7 @@ run JAX).
 
     JAX_PLATFORMS=cpu python tools/jax_cpu_bench_reference.py \
         [--no-mapping | --loop | --kidnap | --reuse | --mono | --stereo |
-         --endurance | --scale [--frames S]] [--default-caps]
+         --endurance | --scale [--frames S]] [--default-caps] [--devices N]
 
 Runs bench.py's sequence and configuration (640x480, 2000 ORB features,
 circle_trajectory(240, radius=0.55, revs=1.30) in BoxRoom(2.0, seed=11),
@@ -84,16 +84,38 @@ and aborted with their solvers, the essential graphs' solvers, the point
 and keyframe compactions, and the BA escalations and dropped lanes.
 
 All of them read the tracker's outcomes every frame (`fetch_every = 1`).
+`--devices N` runs JAX on N virtual CPU devices (it sets
+`XLA_FLAGS=--xla_force_host_platform_device_count=N` before JAX starts;
+default 1): past one device the JAX package's GBAJob runs
+`parallel/dist_gba.distributed_full_ba` and its relocalizer the sharded
+query of `parallel/dist_reloc` (`gba_solvers` then reads "multi-device").
+Every JSON line records N as `devices`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+
+def _devices_arg(argv: list[str]) -> int:
+    """`--devices N` (default 1), read before JAX starts: N virtual CPU
+    devices, so that the JAX package takes its multi-device branches."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--devices", type=int, default=1)
+    return ap.parse_known_args(argv)[0].devices
+
+
+DEVICES = _devices_arg(sys.argv[1:])
+os.environ["XLA_FLAGS"] = " ".join(
+    [f for f in os.environ.get("XLA_FLAGS", "").split()
+     if "xla_force_host_platform_device_count" not in f]
+    + [f"--xla_force_host_platform_device_count={DEVICES}"])
 
 import jax
 import jax.numpy as jnp
@@ -508,10 +530,17 @@ def main():
                     help="with --port: hand the port the JAX package's vocabulary")
     ap.add_argument("--fetch-every", type=int, default=1,
                     help="tracker outcome cadence with --loop (JAX default 16)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="virtual CPU devices (set before JAX starts); past 1 the JAX "
+                         "package's GBAJob and relocalizer take their multi-device "
+                         "branches")
     args = ap.parse_args()
+    if len(jax.devices()) != args.devices:
+        raise SystemExit(f"asked for {args.devices} devices, JAX has {len(jax.devices())}")
     if args.endurance or args.scale:
         frames = args.frames or (1700 if args.scale else None)
-        print(json.dumps(_long_run("scale" if args.scale else "endurance", frames)))
+        print(json.dumps(dict(devices=DEVICES,
+                              **_long_run("scale" if args.scale else "endurance", frames))))
         return
     K = np.array([[520.0, 0, W / 2], [0, 520.0, H / 2], [0, 0, 1.0]])
     poses = synthetic.circle_trajectory(N, radius=0.55, revs=1.30)
@@ -530,12 +559,12 @@ def main():
         pairs = [(f[0], np.clip(room.render(K, right_twc(poses[i]), W, H)[0], 0, 255)
                   .astype(np.uint8).astype(np.float32)) for i, f in enumerate(frames)]
         res = _stereo(cfg, voc, pairs, poses, stamps)
-        print(json.dumps(dict(mode="stereo", n_words=voc.n_words, **res,
+        print(json.dumps(dict(devices=DEVICES, mode="stereo", n_words=voc.n_words, **res,
                               seconds=time.time() - t0)))
         return
     if args.mono:
         res = _mono(cfg, voc, frames, poses, stamps)
-        print(json.dumps(dict(mode="mono", n_words=voc.n_words, **res,
+        print(json.dumps(dict(devices=DEVICES, mode="mono", n_words=voc.n_words, **res,
                               seconds=time.time() - t0)))
         return
     if args.kidnap and args.port:
@@ -556,7 +585,8 @@ def main():
 
         tlc.LoopCloser.__init__ = traced_init
         res = _kidnap(None, pvoc, frames, poses, port=True)
-        print(json.dumps(dict(mode="kidnap", package="port", n_words=pvoc.n_words,
+        print(json.dumps(dict(devices=DEVICES, mode="kidnap", package="port",
+                              n_words=pvoc.n_words,
                               jax_n_words=voc.n_words, jax_vocabulary=args.jax_vocabulary,
                               training_descriptors=len(pdescs) if pdescs is not None else None,
                               training_descriptors_differing=differing, **res, trace=trace,
@@ -567,7 +597,7 @@ def main():
         res = (_kidnap(cfg, voc, frames, poses, trace=trace) if args.kidnap
                else _reuse(cfg, voc, frames, poses, stamps))
         extra = {} if trace is None else dict(trace=trace)
-        print(json.dumps(dict(mode="kidnap" if args.kidnap else "reuse",
+        print(json.dumps(dict(devices=DEVICES, mode="kidnap" if args.kidnap else "reuse",
                               n_words=voc.n_words, **res, **extra, seconds=time.time() - t0)))
         return
     slam = system_mod.SLAMSystem(cfg, system_mod.Sensor.RGBD, vocabulary=voc,
@@ -601,7 +631,8 @@ def main():
                          query_frame=int(fid[e.query_kf]), match_frame=int(fid[e.match_kf]),
                          inliers=e.n_inliers) for e in slam.loop_closer.events])
     print(json.dumps(dict(
-        mapping=not args.no_mapping, **extra, keyframes=slam.n_keyframes, points=slam.n_points,
+        devices=DEVICES, mapping=not args.no_mapping, **extra, keyframes=slam.n_keyframes,
+        points=slam.n_points,
         kf_ate_m=_kf_ate(slam, stamps, poses),
         lost=sum(l for _, _, l in traj),
         kf_frame_ids=np.asarray(slam.map.kf_frame_id)[valid].tolist(),
