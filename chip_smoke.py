@@ -57,6 +57,9 @@ no result):
               (correction, essential graph, one global-BA iteration) twice
               on the card (bit-identical) and once on the CPU: poses and
               points within 1e-3, equal kf_valid and loop edges. Then the
+              essential graph on the corrected map with the pose-graph
+              solver's early exit and with its full 20-iteration loop:
+              every map field bit-equal (dense route). Then the
               essential graph's solve on its live edges from perturbed
               start poses (the loop closer's own solve returns its input):
               twice on the card (bit-identical), once on the CPU, Sim3
@@ -84,7 +87,9 @@ no result):
               launch per pose optimization, and at least one loop whose
               essential graph ran the CG solver and whose job ran pcg_dual
               (the routes past K = 384 and past a 2 GiB one-hot); frames/s,
-              p50/p99/max ms and the loop stages' ms (synced).
+              p50/p99/max ms and the loop stages' ms (synced). The first
+              loop's essential graph again with the solver's early exit
+              and with its full loop: every map field bit-equal (CG).
 9. kidnap   — lost and found in the headline configuration: SLAMSystem with
               phase 7's vocabulary over frames 0-149, 3 blank frames (zero
               image and depth), then the images of frames 100-239 with
@@ -174,9 +179,14 @@ no result):
               distributed GBA (parallel/dist_gba.distributed_full_ba, 10 LM
               iterations) on phase 7's saved map (K_cap 64 / P_cap 32,768)
               and on the scale phase's final map (K_cap 1,536 / P_cap
-              262,144) and the one-process solve of each (global_ba's "pcg"
-              route, the same PCG; its one-hot takes 26 GB at the scale
-              caps); (b) PARALLEL_WORLD gloo ranks,
+              262,144), on the loop map with its slots interleaved across
+              both halves of each capacity (`relaid_map`, PARALLEL_RELAID:
+              at world 2 every rank's keyframe and point blocks hold live
+              rows, printed per rank and required) and the one-process
+              solve of each (global_ba's "pcg" route, the same PCG; its
+              one-hot takes 26 GB at the scale caps; the re-laid map's
+              solve, its slots mapped back, within the bounds of the loop
+              map's); (b) PARALLEL_WORLD gloo ranks,
               all on cuda:0 (NCCL takes one rank per card), run the same
               solves and dist_ba (20 LM iterations) on phase 5's captured
               local-BA window: replicated results bit-equal across ranks,
@@ -186,7 +196,8 @@ no result):
               the one-process solve, 3D point differences printed; controls
               under the same measures, each of which must fail a bound: the
               input with no solve, and the world-2 solves over a mesh that
-              zeroes rank 0's psum terms or its all-gather blocks; ms per LM
+              zeroes rank 0's psum terms or its all-gather blocks, and on
+              the re-laid map rank 1's psum terms; ms per LM
               iteration; (c) the same ranks each run the
               live system through the loop slice (one pass from a fresh
               system) and the kidnap run with phase 7's vocabulary, handed
@@ -203,13 +214,15 @@ no result):
 11. profile — a torch.profiler trace of 10 pose-LM calls shows 10 device
               kernels, all pose_lm_kernel; then one mapping step from the
               phase-6 state, the loop stages of the phase-8 correction
-              (Sim3 chain, correction, essential graph, one GBA iteration)
+              (Sim3 chain, correction, essential graph with the solver's
+              early exit and with its full loop, one GBA iteration)
               and one relocalization attempt of phase 10: device kernels,
               host reads (stream syncs) and top device operations (last: a
               profile slows later launches).
 
-The last lines are the loop, mono, stereo, endurance, scale and parallel
-summaries,
+The last lines are the loop, mono, stereo, endurance and scale
+summaries, every phase's essential graphs as [route, LM iterations] (1:
+the solver's early exit fired), the parallel summary,
 a JSON record of the kernels
 (`launches` from the loop slice, `launches_by_path` each slice's,
 `launches_batched` the B > 1 launches of the kidnap, reuse, endurance and
@@ -345,6 +358,7 @@ PARALLEL_WORLD = 2  # ranks of the parallel phase's gloo launch, sharing the car
 PARALLEL_TIMEOUT_S = 600  # a launch of ranks is killed past this
 PARALLEL_GBA_ITERS = 10  # GBAJob's LM iterations
 PARALLEL_BA_ITERS = 20  # dist_ba on the local-BA window: converged iterates
+PARALLEL_RELAID = "loop_relaid"  # the loop map, slots interleaved (`relaid_map`)
 # the distributed GBA / BA at n ranks against 1 rank, and against the
 # one-process solve of the same map by global_ba's "pcg" route (the same
 # Schur-diagonal PCG, its camera sums over the point-major lanes where the
@@ -896,6 +910,88 @@ def _synced(fn, label: str, into: list):
     return run
 
 
+def _kept(fn, into: list):
+    """fn(state, *args), keeping its first call's arguments in `into` (the
+    map cloned)."""
+    def run(state, *a):
+        if not into:
+            into.append((type(state)(*[x.clone() for x in state]), *a))
+        return fn(state, *a)
+
+    return run
+
+
+ESSENTIAL_SOLVES: dict = {}  # phase: [[route, LM iterations], ...] of each essential graph
+
+
+def _current_phase() -> str:
+    """The innermost `phase_*` (or `_rank_*`) function on the stack."""
+    f = sys._getframe()
+    while f is not None:
+        name = f.f_code.co_name
+        if name.startswith(("phase_", "_rank_")):
+            return name.removeprefix("phase_").lstrip("_")
+        f = f.f_back
+    return "other"
+
+
+def _record_essential_solves() -> None:
+    """Wrap pose_graph.optimize_pose_graph for the rest of the process: the
+    route and the LM iterations of every solve go into ESSENTIAL_SOLVES
+    under the phase that ran it (1 iteration: the solver's early exit
+    fired; 20: it did not). A phase's own wrappers wrap this one."""
+    from orbslam_mapsave_tpu_torch.optim import pose_graph
+
+    solve = pose_graph.optimize_pose_graph
+
+    def recorded(prob, *a, **k):
+        pose_graph.reset_iterations()
+        out = solve(prob, *a, **k)
+        ESSENTIAL_SOLVES.setdefault(_current_phase(), []).append(
+            [k.get("solver", "dense"), pose_graph.iterations])
+        return out
+
+    pose_graph.optimize_pose_graph = recorded
+
+
+def _essential_exit_vs_full(lc, state, kf: int, mkf: int, label: str) -> dict:
+    """`LoopCloser._essential` on a corrected map twice: as it runs (the
+    pose-graph solver's early exit) and with the solver's full loop
+    (`pose_graph._optimize_pose_graph_full`) in its place. Every map field
+    must be bit-equal and the full loop must run 20 LM iterations. Each run
+    is synced and host-timed, its route and LM iterations recorded."""
+    from orbslam_mapsave_tpu_torch.optim import pose_graph
+
+    res, outs = {}, []
+    for name, solve in (("exit", pose_graph.optimize_pose_graph),
+                        ("full_loop", pose_graph._optimize_pose_graph_full)):
+        seen = []
+
+        def recorded(prob, *a, solve=solve, seen=seen, **k):
+            pose_graph.reset_iterations()
+            out = solve(prob, *a, **k)
+            seen.append((k.get("solver", "dense"), pose_graph.iterations))
+            return out
+
+        with _patched([(pose_graph, "optimize_pose_graph", recorded)]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(lc._essential(state, kf, mkf))
+            torch.cuda.synchronize()
+        res[name] = dict(ms=1e3 * (time.perf_counter() - t0), route=seen[0][0],
+                         iterations=seen[0][1])
+    res["fields_differing"] = [k for k, a, b in zip(outs[0]._fields, *outs)
+                               if not torch.equal(a, b)]
+    log(f"[{label}] essential graph, early exit vs full loop (synced): " + json.dumps(res))
+    if res["fields_differing"]:
+        raise AssertionError(f"[{label}] the early exit's map differs from the full loop's "
+                             f"in {res['fields_differing']}")
+    if res["full_loop"]["iterations"] != 20:
+        raise AssertionError(f"[{label}] the full loop ran {res['full_loop']['iterations']} "
+                             "LM iterations")
+    return res
+
+
 def _map_step_stages(mapper, captured) -> dict:
     """Host-clock ms of each stage of one replayed mapping step (a device
     sync before and after each), and the LM iterations its BA ran."""
@@ -1109,7 +1205,8 @@ def _essential_solve(corrected, kf: int, mkf: int) -> dict:
     makes it work. In the loop closer the solve returns its input: every
     measurement is taken from the poses it starts at, and an edge whose
     residual is the identity (a dead lane (0, 0) among them) has a NaN
-    Jacobian that zeroes every step (ROADMAP queue 3, kept for parity).
+    Jacobian that zeroes every step (kept for parity; the solver's early
+    exit stops there after one linearization).
     Here the captured correction's graph keeps its live edges and their
     measurements, and every free keyframe starts from its corrected pose
     moved by a small Sim3 drawn from ESSENTIAL_SEED, so the 20 iterations
@@ -1157,7 +1254,10 @@ def _essential_solve(corrected, kf: int, mkf: int) -> dict:
 def phase_loop_replay(lc, cap: dict) -> dict:
     """The replay twice on the card (bit-identical) and once on the CPU:
     poses and points within 1e-3, equal kf_valid and loop edges; then the
-    essential graph's solve on its live edges (`_essential_solve`)."""
+    essential graph on the corrected map with the solver's early exit and
+    with its full loop, bit-equal (`_essential_exit_vs_full`, dense route,
+    bench caps), and the essential graph's solve on its live edges
+    (`_essential_solve`)."""
     dev = torch.device("cuda", 0)
     outs = [_loop_replay(lc, cap, dev) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1166,8 +1266,8 @@ def phase_loop_replay(lc, cap: dict) -> dict:
     differ += [k for k, x, y in zip(ca._fields, ca, cb) if not torch.equal(x, y)]
     if differ or not (torch.equal(pa, pb) and torch.equal(xa, xb)):
         raise AssertionError(f"loop replay not bit-repeatable on the card: {differ}")
-    # what the essential graph changed on the card (ROADMAP queue 3: a dead
-    # edge lane makes the JAX solver, and so the port, return its input)
+    # what the essential graph changed on the card (a dead edge lane makes
+    # the JAX solver, and so the port, return its input)
     live_kf, live_pt = a.kf_valid, a.pt_valid
     essential_change = dict(
         pose_max_abs=float((a.kf_pose - ca.kf_pose)[live_kf].abs().max()),
@@ -1194,6 +1294,10 @@ def phase_loop_replay(lc, cap: dict) -> dict:
     if max(diff[k] for k in ("pose_max_abs", "point_max_abs", "gba_pose_max_abs",
                              "gba_point_max_abs")) > 1e-3:
         raise AssertionError("card and CPU loop replays differ by more than 1e-3")
+    diff["essential_exit_vs_full"] = _essential_exit_vs_full(
+        lc, ca, cap["kf"], cap["match_kf"], "loop replay")
+    if diff["essential_exit_vs_full"]["exit"]["route"] != "dense":
+        raise AssertionError("the loop replay's essential graph did not run the dense route")
     diff["essential_live_edges"] = _essential_solve(ca, cap["kf"], cap["match_kf"])
     return diff
 
@@ -1334,7 +1438,10 @@ def phase_stereo(dev, seq, voc) -> dict:
     to the JAX CPU run: lost frames no more, keyframes within 20%, kf ATE
     within 1 cm, its loop count, every loop's job applied and none
     aborted, no BA lane dropped, one pose-LM launch per pose optimization,
-    and at least one CG essential graph and one applied pcg_dual job."""
+    and at least one CG essential graph and one applied pcg_dual job. The
+    first loop's essential graph is then run again on its captured input
+    with the solver's early exit and with its full loop, bit-equal
+    (`_essential_exit_vs_full`, CG route, default capacities)."""
     from orbslam_mapsave_tpu_torch.io import trajectory as traj_io
     from orbslam_mapsave_tpu_torch.optim import global_ba, pose_graph, pose_opt, pose_opt_cuda
     from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
@@ -1356,6 +1463,7 @@ def phase_stereo(dev, seq, voc) -> dict:
     torch.cuda.synchronize()
 
     calls, timed, essential_solvers, gba_solvers = 0, [], [], []
+    essential_iterations, essential_in = [], []
     dispatch = pose_opt.pose_optimization
     solve_graph = pose_graph.optimize_pose_graph
     job_init = gba_mod.GBAJob.__init__
@@ -1367,7 +1475,10 @@ def phase_stereo(dev, seq, voc) -> dict:
 
     def recorded_graph(prob, *a, **k):
         essential_solvers.append(k.get("solver", "dense"))
-        return solve_graph(prob, *a, **k)
+        pose_graph.reset_iterations()
+        out = solve_graph(prob, *a, **k)
+        essential_iterations.append(pose_graph.iterations)
+        return out
 
     def recorded_job(job, *a, **k):
         job_init(job, *a, **k)
@@ -1378,6 +1489,7 @@ def phase_stereo(dev, seq, voc) -> dict:
               (global_ba, "gba_iterate", "gba_iter"), (gba_mod, "_apply_device", "gba_apply")]
     patches = [(obj, name, _synced(getattr(obj, name), label, timed))
                for obj, name, label in stages]
+    patches[2] = (lc, "_essential", _kept(patches[2][2], essential_in))
     patches += [(pose_opt, "pose_optimization", counted),
                 (pose_graph, "optimize_pose_graph", recorded_graph),
                 (gba_mod.GBAJob, "__init__", recorded_job)]
@@ -1409,7 +1521,8 @@ def phase_stereo(dev, seq, voc) -> dict:
                keyframes=slam.n_keyframes, points=slam.n_points, kf_ate_m=kf_ate,
                loops=len(events), events=events, inliers=[e.n_inliers for e in lc.events],
                gba_applied=lc.gba_applied, gba_aborted=lc.gba_aborted,
-               essential_solvers=essential_solvers, gba_solvers=gba_solvers,
+               essential_solvers=essential_solvers, essential_iterations=essential_iterations,
+               gba_solvers=gba_solvers,
                ba_lanes_dropped=slam.tracker.ba_lanes_dropped + map_dropped,
                pose_optimizations=calls, launches=launches,
                warmup_keyframes=warmup_keyframes,
@@ -1419,7 +1532,8 @@ def phase_stereo(dev, seq, voc) -> dict:
                stages_ms=_stage_summary(timed))
     log("[stereo] " + json.dumps({k: v for k, v in res.items() if k != "stages_ms"}))
     log("[stereo] loop stage ms (host clock, synced; essential: "
-        f"{essential_solvers}, GBA jobs: {gba_solvers}): " + json.dumps(res["stages_ms"]))
+        f"{essential_solvers}, LM iterations {essential_iterations}, GBA jobs: "
+        f"{gba_solvers}): " + json.dumps(res["stages_ms"]))
     if len(lost) > len(JAX_CPU_STEREO_LOST_FRAMES):
         raise AssertionError(f"lost frames {lost}, JAX CPU {JAX_CPU_STEREO_LOST_FRAMES}")
     _check_quality(res, JAX_CPU_STEREO_KEYFRAMES, JAX_CPU_STEREO_KF_ATE_M)
@@ -1435,6 +1549,9 @@ def phase_stereo(dev, seq, voc) -> dict:
         raise AssertionError(f"BA dropped {res['ba_lanes_dropped']} observation lanes")
     if launches != calls or calls < 2 * (N_FRAMES - len(lost) - 1):
         raise AssertionError(f"{launches} pose-LM launches for {calls} pose optimizations")
+    res["essential_exit_vs_full"] = _essential_exit_vs_full(lc, *essential_in[0], "stereo")
+    if res["essential_exit_vs_full"]["exit"]["route"] != "cg":
+        raise AssertionError("the stereo loop's essential graph did not run the CG route")
     return res
 
 
@@ -2373,6 +2490,8 @@ def phase_scale(dev, map_step_ms: tuple) -> tuple[dict, object]:
     log("[scale] port vs JAX CPU: " + json.dumps(_vs(res, ref, (
         "lost_frames", "keyframes_live", "kf_alloc_watermark", "kf_ate_m", "loops",
         "ba_escalations", "ba_lanes_dropped", "gba_solvers", "essential_solvers"))))
+    log(f"[scale] essential graphs: routes {res['essential_solvers']}, LM iterations "
+        f"{res['essential_iterations']} (1: the solver's early exit fired)")
     log(f"[scale] ms per mapping step p50 {res['map_step_p50_ms']:.1f} / p99 "
         f"{res['map_step_p99_ms']:.1f} at K_cap 1536 / P_cap 262144, beside "
         f"{map_step_ms[0]:.1f} / {map_step_ms[1]:.1f} at the bench caps (phase 5)")
@@ -2407,6 +2526,52 @@ def _capture_ba_window(mapper, captured) -> object:
     return probs[0]
 
 
+def _interleaved(n: int) -> np.ndarray:
+    """new_of_old of n slots interleaved across their two halves: slot s of
+    the first half goes to 2s, slot s of the second to 2(s - n/2) + 1."""
+    old = np.arange(n)
+    return np.where(old < n // 2, 2 * old, 2 * (old - n // 2) + 1)
+
+
+def relaid_map(state):
+    """The map with its keyframe and point slots interleaved
+    (`_interleaved`) and every holder of a slot id renumbered: the parent,
+    loop edges, covisibility, the points' reference, first and observing
+    keyframes, the keypoints' points; the watermarks follow their slots.
+    The same map on other slots: a map that fills the front of its
+    capacities puts live rows into both halves of each. Slot 0 (the
+    keyframe that the global BA holds fixed) stays."""
+    dev = state.kf_pose.device
+    kf_new, pt_new = (torch.as_tensor(_interleaved(n), device=dev)
+                      for n in (state.kf_capacity, state.pt_capacity))
+    ko, po = torch.argsort(kf_new), torch.argsort(pt_new)  # old slot of each new one
+
+    def renumber(ids, new_of_old):
+        return torch.where(ids >= 0, new_of_old[torch.clamp(ids, min=0).long()].to(ids.dtype),
+                           ids)
+
+    f = {k: x[ko] if k.startswith("kf_") else x[po] if k.startswith("pt_") else x
+         for k, x in state._asdict().items()}
+    f["covis"] = state.covis[ko][:, ko]
+    for k in ("kf_parent", "kf_loop_edges", "pt_ref_kf", "pt_first_kf", "pt_obs_kf"):
+        f[k] = renumber(f[k], kf_new)
+    f["kf_kp_point"] = renumber(f["kf_kp_point"], pt_new)
+    for k, new_of_old in (("n_kf", kf_new), ("n_pt", pt_new)):
+        n = int(f[k])
+        f[k] = torch.tensor(int(new_of_old[:n].max()) + 1 if n else 0, dtype=f[k].dtype,
+                            device=dev)
+    return type(state)(**f)
+
+
+def _live_rows_per_rank(state, world: int) -> list:
+    """[live keyframes, live points] in each rank's blocks at `world` ranks
+    (rows [r n / world, (r + 1) n / world) of each capacity)."""
+    kv, pv = state.kf_valid.cpu(), state.pt_valid.cpu()
+    bk, bp = kv.shape[0] // world, pv.shape[0] // world
+    return [[int(kv[r * bk:(r + 1) * bk].sum()), int(pv[r * bp:(r + 1) * bp].sum())]
+            for r in range(world)]
+
+
 def parallel_inputs(tmp: Path, seq, voc, maps: dict, window, cam) -> Path:
     """Write what the ranks read into tmp/parallel: the maps
     ({name: (MapState, Camera, inv_level_sigma2, one-process solver)}),
@@ -2420,7 +2585,8 @@ def parallel_inputs(tmp: Path, seq, voc, maps: dict, window, cam) -> Path:
     for name, (state, mcam, isig, solver) in maps.items():
         mapio.save_map(d / f"{name}_map.npz", state)
         meta["maps"][name] = dict(cam=list(mcam), isig=torch.as_tensor(isig).tolist(),
-                                  solver=solver)
+                                  solver=solver,
+                                  live_rows=_live_rows_per_rank(state, PARALLEL_WORLD))
     np.savez(d / "window.npz", **{k: v.cpu().numpy() for k, v in window._asdict().items()})
     poses, frames = seq
     np.savez(d / "seq.npz", poses=poses, gray=np.stack([f[0] for f in frames]),
@@ -2584,6 +2750,13 @@ def run_parallel(d: Path, world: int, backend: str, devices: list[str], live: bo
     `live`, the loop slice and the kidnap run of the live system on every
     rank). Returns the phase's numbers."""
     meta = json.loads((d / "inputs.json").read_text())
+    for name, m in meta["maps"].items():
+        log(f"[parallel] {name} map: [live keyframes, live points] in each of "
+            f"{PARALLEL_WORLD} ranks' blocks: {m['live_rows']}")
+    relaid = meta["maps"].get(PARALLEL_RELAID)
+    if relaid and not all(n > 0 for rows in relaid["live_rows"] for n in rows):
+        raise AssertionError(f"{PARALLEL_RELAID}: a rank's block holds no live row: "
+                             f"{relaid['live_rows']}")
     one = _launch_ranks(d, 1, "nccl", devices[:1], ["solve", "reference"], "world1")[0]
     a1 = one["arrays"]
     res = {"world1": {k: v for k, v in one.items() if k != "arrays"}, "vs_one_process": {},
@@ -2597,6 +2770,18 @@ def run_parallel(d: Path, world: int, backend: str, devices: list[str], live: bo
             f"{name} map with no solve vs the one-process {m['solver']} solve")
     res["controls"]["nosolve_window"] = _control(
         a1, a1, "nosolve_window", "window", "the window with no solve vs world 1's solve")
+    if relaid:  # the same problem on other slots: its solve mapped back
+        kf_new = _interleaved(a1["ref_loop_poses"].shape[0])
+        cost = float(a1["ref_loop_cost"])
+        gaps = dict(pose=float(np.max(np.abs(a1[f"ref_{PARALLEL_RELAID}_poses"][kf_new]
+                                             - a1["ref_loop_poses"]))),
+                    cost=abs(float(a1[f"ref_{PARALLEL_RELAID}_cost"]) - cost)
+                    / max(abs(cost), 1e-12))
+        log(f"[parallel] {PARALLEL_RELAID} vs loop map, one-process solves, slots mapped "
+            "back: " + json.dumps(gaps))
+        if not (gaps["pose"] <= PAR_POSE_TOL and gaps["cost"] <= PAR_COST_RTOL):
+            raise AssertionError(f"{PARALLEL_RELAID}'s solve is not the loop map's: {gaps}")
+        res["relaid_vs_loop"] = gaps
     tasks = ["solve", "control"] + (["live"] if live else [])
     ranks = _launch_ranks(d, world, backend, devices, tasks, f"world{world}")
     keys = [f"{n}_{f}" for n in meta["maps"] for f in ("poses", "pts", "px", "cost")]
@@ -2612,6 +2797,11 @@ def run_parallel(d: Path, world: int, backend: str, devices: list[str], live: bo
             res["controls"][f"{c}_{name}"] = _control(
                 an, a1, f"{c}_{name}", name,
                 f"{name}, world {world} ({backend}) with rank 0's {what} zeroed vs world 1")
+    if relaid:
+        res["controls"][f"droppsum1_{PARALLEL_RELAID}"] = _control(
+            an, a1, f"droppsum1_{PARALLEL_RELAID}", PARALLEL_RELAID,
+            f"{PARALLEL_RELAID}, world {world} ({backend}) with rank 1's psum terms zeroed "
+            "vs world 1")
     res[f"world{world}"] = [{k: v for k, v in r.items() if k != "arrays"} for r in ranks]
     if live:
         if world not in JAX_CPU_MULTI:
@@ -2642,7 +2832,9 @@ def phase_parallel(d: Path) -> dict:
         + json.dumps({k: w1[k] for k in w1 if k.endswith("ms_per_iter")}))
     for r in res[f"world{PARALLEL_WORLD}"]:
         log(f"[parallel] world {PARALLEL_WORLD} gloo rank {r['rank']} on {r['device']}: "
-            + json.dumps({k: r[k] for k in r if k.endswith(("ms_per_iter", "fps"))}))
+            + json.dumps({k: r[k] for k in r if k.endswith(("ms_per_iter", "fps"))})
+            + "; essential graphs [route, LM iterations]: "
+            + json.dumps(r.get("essential_solves")))
     log(f"[parallel] phase took {res['seconds']:.1f} s")
     return res
 
@@ -2654,8 +2846,10 @@ def _rank_solves(task: set, mesh, d: Path, meta: dict, dev, out: dict, arrays: d
     "nosolve_" (with "reference"), the input map or window through 0 LM
     iterations; with "control", the same solves over a broken mesh that
     zeroes rank 0's term of every psum ("droppsum_") or rank 0's block of
-    every all-gather ("dropgather_"). Rank 0 holds the live rows: the maps'
-    keyframes and points and the window's landmarks fill the first slots."""
+    every all-gather ("dropgather_"), and on PARALLEL_RELAID rank 1's term
+    of every psum ("droppsum1_"). On the loop and scale maps and the window
+    rank 0 holds the live keyframes (the first slots); on PARALLEL_RELAID
+    every rank's blocks hold live rows."""
     from orbslam_mapsave_tpu_torch.geometry import projection
     from orbslam_mapsave_tpu_torch.io import mapio
     from orbslam_mapsave_tpu_torch.optim import global_ba, local_ba
@@ -2670,11 +2864,16 @@ def _rank_solves(task: set, mesh, d: Path, meta: dict, dev, out: dict, arrays: d
         def all_gather(self, x):
             return super().all_gather(torch.zeros_like(x) if self.rank == 0 else x)
 
+    class DropPsum1(pmesh.Mesh):
+        def psum(self, x):
+            return super().psum(torch.zeros_like(x) if self.rank == 1 else x)
+
     controls = {}  # prefix: (mesh, whether it iterates)
     if "reference" in task:
         controls["nosolve"] = (mesh, False)
     if "control" in task:
-        for c, cls in (("droppsum", DropPsum), ("dropgather", DropGather)):
+        for c, cls in (("droppsum", DropPsum), ("dropgather", DropGather),
+                       ("droppsum1", DropPsum1)):
             controls[c] = (cls(mesh.size, mesh.rank, mesh.device, mesh.grouped), True)
     for i, (name, m) in enumerate(meta["maps"].items()):
         state = mapio.load_map(d / f"{name}_map.npz", dev)
@@ -2692,6 +2891,8 @@ def _rank_solves(task: set, mesh, d: Path, meta: dict, dev, out: dict, arrays: d
         arrays.update({f"{name}_poses": poses, f"{name}_pts": pts, f"{name}_cost": cost,
                        f"{name}_px": _lane_px(cam, poses, pts, tb.po_cam, tb.po_valid)})
         for c, (cmesh, solve) in controls.items():
+            if c == "droppsum1" and name != PARALLEL_RELAID:
+                continue
             cp, cx, cc = dist_gba.distributed_full_ba(
                 cam, state, isig, cmesh, n_iters=PARALLEL_GBA_ITERS if solve else 0)
             arrays.update({f"{c}_{name}_poses": cp, f"{c}_{name}_pts": cx,
@@ -2725,6 +2926,8 @@ def _rank_solves(task: set, mesh, d: Path, meta: dict, dev, out: dict, arrays: d
     arrays.update(window_poses=r.cam_pose, window_pts=r.pt_pos, window_cost=r.chi2,
                   window_px=_lane_px(cam, r.cam_pose, r.pt_pos, prob.obs_cam, struct))
     for c, (cmesh, solve) in controls.items():
+        if c == "droppsum1":
+            continue
         r = dist_ba.make_distributed_ba(cam, cmesh, n_iters=PARALLEL_BA_ITERS if solve else 0)(
             dist_ba.shard_problem(prob, cmesh))
         arrays.update({f"{c}_window_poses": r.cam_pose, f"{c}_window_pts": r.pt_pos,
@@ -2791,12 +2994,14 @@ def parallel_rank(d: Path, tag: str, backend: str, device: str, tasks: str) -> i
     mesh = pmesh.make_mesh(device=dev)
     task = set(tasks.split(","))
     meta = json.loads((d / "inputs.json").read_text())
+    _record_essential_solves()
     out = dict(rank=mesh.rank, world=mesh.size, backend=backend, device=str(dev),
                card=torch.cuda.get_device_name(dev))
     arrays: dict = {}
     _rank_solves(task, mesh, d, meta, dev, out, arrays)
     if "live" in task:
         _rank_live(d, dev, out)
+        out["essential_solves"] = ESSENTIAL_SOLVES
     np.savez(d / f"{tag}_rank{mesh.rank}.npz",
              **{k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in arrays.items()})
     (d / f"{tag}_rank{mesh.rank}.json").write_text(json.dumps(out))
@@ -2869,7 +3074,9 @@ def phase_profile_map_step(mapper, captured) -> dict:
 def phase_profile_loop(lc, cap: dict, dev) -> dict:
     """The loop stages of the first loop correction under torch.profiler:
     the Sim3 chain of the closing pair (on the correction's input map),
-    the correction, the essential graph and one global-BA iteration."""
+    the correction, the essential graph (as it runs, and with the solver's
+    full loop in place of its early exit) and one global-BA iteration."""
+    from orbslam_mapsave_tpu_torch.optim import pose_graph
     from orbslam_mapsave_tpu_torch.pipeline import gba as gba_mod
 
     st, kf, mkf, args = _correction_inputs(cap, dev)
@@ -2885,9 +3092,15 @@ def phase_profile_loop(lc, cap: dict, dev) -> dict:
     def gba_iteration():
         gba_mod.global_ba.gba_iterate(lc.cam, job._tb, *job._carry)
 
+    def essential_full_loop():
+        with _patched([(pose_graph, "optimize_pose_graph",
+                        pose_graph._optimize_pose_graph_full)]):
+            lc._essential(corrected, kf, mkf)
+
     res = _profile_ranges([("sim3 chain", sim3),
                            ("correction", lambda: lc._correct(st, kf, mkf, *args)),
                            ("essential graph", lambda: lc._essential(corrected, kf, mkf)),
+                           ("essential graph, full loop", essential_full_loop),
                            ("gba iteration", gba_iteration)])
     for name, r in res.items():
         _log_profile(f"loop stage '{name}'", r)
@@ -2909,6 +3122,7 @@ def phase_profile_reloc(reuse: dict) -> dict:
 def main() -> int:
     try:
         smi = phase_device()
+        _record_essential_solves()
         dev = torch.device("cuda", 0)
         phase_build()
         kres = phase_kernel(dev)
@@ -2932,6 +3146,8 @@ def main() -> int:
 
             pdir = parallel_inputs(Path(tmp), seq, lc.voc, {
                 "loop": (mapio.load_map(map_path, dev), lc.cam, lc._t(dev)[1], "pcg"),
+                PARALLEL_RELAID: (relaid_map(mapio.load_map(map_path, dev)), lc.cam,
+                                  lc._t(dev)[1], "pcg"),
                 "scale": (sslam.map, sslam.cam, sslam.builder.inv_level_sigma2, "pcg")},
                 _capture_ba_window(mapper, captured), lc.cam)
             del sslam
@@ -2968,8 +3184,11 @@ def main() -> int:
         "frames", "fps", "p50_ms", "p99_ms", "max_ms", "loops", "keyframes_live",
         "kf_alloc_watermark", "points_live", "kf_ate_m", "lost_stretches", "map_step_p50_ms",
         "map_step_p99_ms", "ba_escalations", "ba_lanes_dropped", "peak_memory_bytes")}))
+    log("[chip_smoke] essential graphs per phase, [route, LM iterations] (1: the solver's "
+        "early exit fired, 20: it did not): " + json.dumps(ESSENTIAL_SOLVES))
     log("[chip_smoke] parallel: " + json.dumps({
         "seconds": par["seconds"], "vs_one_process": par["vs_one_process"],
+        "relaid_vs_loop": par.get("relaid_vs_loop"),
         "vs_world1": par["vs_world1"], "controls": par["controls"], "live": par["live"],
         "nccl_cards": {k: par["nccl_cards"][k] for k in ("vs_world1", "controls", "live")}
         if "nccl_cards" in par else None,

@@ -5,7 +5,10 @@ Port of `orbslam_mapsave_tpu/optim/pose_graph.py`
 vertices are per-keyframe Sim3 world->camera transforms, edges carry a
 measured relative Sim3, the residual sim3_log(S_meas (exp(xi_i) S_i
 (exp(xi_j) S_j)^-1)^-1) is linearized by forward-mode differentiation at
-xi = 0 for all edges at once; 20 damped Gauss-Newton iterations. Two
+xi = 0 for all edges at once; 20 damped Gauss-Newton iterations, left
+after the first where its gradient is non-finite in every free entry
+(`optimize_pose_graph`: every later one would repeat it, so the result
+is the same bits). Two
 solvers: `"dense"` assembles the (7K,7K) normal system by incidence
 contractions and solves it by Cholesky; `"cg"` (the loop closer's past
 K = 384) keeps per-edge 7x7 blocks and runs block-Jacobi preconditioned
@@ -69,12 +72,54 @@ def _residuals_only(S, prob: PoseGraphProblem, oh_i, oh_j):
                           prob.edge_meas, z7, z7)
 
 
+iterations = 0  # LM iterations run since the last reset (the early exit's evidence)
+
+
+def reset_iterations() -> None:
+    global iterations
+    iterations = 0
+
+
 def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str = "dense",
                         cg_iters: int = 100, cg_tol: float = 1e-6):
     """Damped Gauss-Newton over the pose graph. Returns (S_opt (K,4,4),
     final chi2). A failed factorization gives a zero step, as the JAX
     version's NaN -> 0 rule does. `cg_iters` / `cg_tol` bound the inner
-    solve of solver="cg"."""
+    solve of solver="cg".
+
+    Leaves the loop after its first linearization when the first gradient
+    g (the route's own, free rows only) is non-finite in every entry, and
+    returns what all `n_iters` iterations return there. The loop closer's
+    graphs do this: a dead lane (0, 0), or any edge whose residual is
+    exactly the identity, has a NaN forward-mode `so3_log` Jacobian, and
+    the incidence contractions spread it over every row of g. Then the
+    step is zero for every lambda:
+    - dense: each free entry of the right-hand side is NaN, so each free
+      entry of the Cholesky solve is NaN, or the factorization fails; the
+      NaN -> 0 rule zeroes the step either way;
+    - CG: |g| is NaN, the first stop test `NaN > tol` is false, and the
+      PCG returns its start, 0.
+    `sim3_exp(0) @ S == S` bit for bit, so S, and with it the next
+    linearization, never changes: every iteration repeats the first, and
+    the result is `sim3_orthonormalize(S_init)` with its chi2 (lambda,
+    the only state that changes, is not returned). A case outside this
+    argument runs all `n_iters`: a finite g with a failed factorization
+    (there lambda changes the step), or a g with some finite free entries
+    (the dense route's NaN -> 0 rule keeps those). The test reads a value
+    computed from the map, so every rank of a process group takes the
+    same branch. `_optimize_pose_graph_full` is the loop without the exit."""
+    return _optimize(prob, n_iters, solver, cg_iters, cg_tol, early_exit=True)
+
+
+def _optimize_pose_graph_full(prob: PoseGraphProblem, n_iters: int = 20, solver: str = "dense",
+                              cg_iters: int = 100, cg_tol: float = 1e-6):
+    """`optimize_pose_graph` without its early exit: all `n_iters` run."""
+    return _optimize(prob, n_iters, solver, cg_iters, cg_tol, early_exit=False)
+
+
+def _optimize(prob: PoseGraphProblem, n_iters: int, solver: str, cg_iters: int, cg_tol: float,
+              early_exit: bool):
+    global iterations
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown pose-graph solver {solver!r}")
     K = prob.S_init.shape[0]
@@ -88,7 +133,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str =
 
     S = prob.S_init
     lam = torch.tensor(1e-6, dtype=S.dtype, device=S.device)
-    for _ in range(n_iters):
+    for it in range(n_iters):
+        iterations += 1
         r, Ji, Jj = _linearize(S, prob, oh_i, oh_j)
         if solver == "cg":  # fixed endpoints: zero Jacobians, identity rows
             free_f = free.to(S.dtype)
@@ -97,13 +143,16 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str =
         cur = torch.sum(w * torch.sum(r * r, -1))
         blocks = (torch.einsum("eri,e,erj->eij", Ji, w, Ji),  # Hii
                   torch.einsum("eri,e,erj->eij", Jj, w, Jj),  # Hjj
-                  torch.einsum("eri,e,erj->eij", Ji, w, Jj),  # Hij
-                  -torch.einsum("eri,e,er->ei", Ji, w, r),  # gi
-                  -torch.einsum("eri,e,er->ei", Jj, w, r))  # gj
+                  torch.einsum("eri,e,erj->eij", Ji, w, Jj))  # Hij
+        gi = -torch.einsum("eri,e,er->ei", Ji, w, r)
+        gj = -torch.einsum("eri,e,er->ei", Jj, w, r)
+        g = oh_i.T @ gi + oh_j.T @ gj
+        if early_exit and it == 0 and bool(torch.all(~torch.isfinite(g) | ~free[:, None])):
+            break  # every later iteration repeats this one (docstring)
         if solver == "cg":
-            dx = _cg_step(free, oh_i, oh_j, blocks, lam, cg_iters, cg_tol)
+            dx = _cg_step(free, oh_i, oh_j, blocks, g, lam, cg_iters, cg_tol)
         else:
-            dx = _dense_step(free, oh_i, oh_j, blocks, lam)
+            dx = _dense_step(free, oh_i, oh_j, blocks, g, lam)
         S_new = se3.sim3_exp(dx) @ S
         accept = chi2_of(S_new) < cur
         S = torch.where(accept, S_new, S)
@@ -113,17 +162,17 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, solver: str =
     return S, chi2_of(S)
 
 
-def _dense_step(free, oh_i, oh_j, blocks, lam) -> torch.Tensor:
+def _dense_step(free, oh_i, oh_j, blocks, g, lam) -> torch.Tensor:
     """The step (K,7) from the (7K,7K) normal system assembled by incidence
-    contractions and solved by Cholesky; fixed rows are the identity."""
-    Hii, Hjj, Hij, gi, gj = blocks
+    contractions and solved by Cholesky (g (K,7) the assembled gradient);
+    fixed rows are the identity."""
+    Hii, Hjj, Hij = blocks
     K = free.shape[0]
     mask = torch.repeat_interleave(free, 7)
     H = (torch.einsum("ea,eb,eij->abij", oh_i, oh_i, Hii)
          + torch.einsum("ea,eb,eij->abij", oh_j, oh_j, Hjj)
          + torch.einsum("ea,eb,eij->abij", oh_i, oh_j, Hij)
          + torch.einsum("ea,eb,eji->abij", oh_i, oh_j, Hij).transpose(0, 1))
-    g = oh_i.T @ gi + oh_j.T @ gj
     Hf = H.transpose(1, 2).reshape(K * 7, K * 7)
     Hf = torch.where(mask[:, None] & mask[None, :], Hf, torch.zeros_like(Hf))
     Hf = Hf + torch.diag(torch.where(mask, lam, torch.ones_like(lam)))
@@ -134,15 +183,15 @@ def _dense_step(free, oh_i, oh_j, blocks, lam) -> torch.Tensor:
                        torch.zeros_like(dx))
 
 
-def _cg_step(free, oh_i, oh_j, blocks, lam, cg_iters: int, cg_tol: float) -> torch.Tensor:
+def _cg_step(free, oh_i, oh_j, blocks, g, lam, cg_iters: int, cg_tol: float) -> torch.Tensor:
     """The step (K,7) by matrix-free PCG (JAX `_optimize_pose_graph_cg`):
     per-edge 7x7 blocks, endpoints selected and reduced through the (E,K)
     incidence, the damped block diagonal as block-Jacobi preconditioner,
-    stopping at |r| / |g| <= cg_tol; fixed rows are the identity."""
-    Hii, Hjj, Hij, gi, gj = blocks
+    stopping at |r| / |g| <= cg_tol (g (K,7) the assembled gradient);
+    fixed rows are the identity."""
+    Hii, Hjj, Hij = blocks
     E, K = oh_i.shape
     eye7 = torch.eye(7, dtype=Hii.dtype, device=Hii.device)
-    g = oh_i.T @ gi + oh_j.T @ gj
     g = torch.where(free[:, None], g, torch.zeros_like(g))
     D = (oh_i.T @ Hii.reshape(E, 49) + oh_j.T @ Hjj.reshape(E, 49)).reshape(K, 7, 7)
     D = torch.where(free[:, None, None], D + eye7 * lam, eye7)

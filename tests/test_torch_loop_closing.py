@@ -351,14 +351,46 @@ def test_correction_window_bitmask_quirk():
     assert moved[16] and moved[17] and moved[18]
 
 
+def _essential_exit_vs_full(tcl, h: dict) -> tuple:
+    """The port's `_essential` on the map h twice: as it runs (the solver's
+    early exit) and with `pose_graph._optimize_pose_graph_full` in the
+    solver's place. Every map field bit-equal, the full loop 20 LM
+    iterations. Returns (the map, the solvers asked for, the LM iterations
+    the first run ran)."""
+    pg = tlc.pose_graph
+    solve_exit, runs = pg.optimize_pose_graph, []
+    for solve in (solve_exit, pg._optimize_pose_graph_full):
+        solvers = []
+
+        def recorded(prob, *a, solve=solve, solvers=solvers, **k):
+            solvers.append(k.get("solver"))
+            return solve(prob, *a, **k)
+
+        pg.optimize_pose_graph = recorded
+        pg.reset_iterations()
+        try:
+            out = tcl._essential(interop.map_state_from_numpy(h), QUERY, MATCH)
+        finally:
+            pg.optimize_pose_graph = solve_exit
+        runs.append((out, solvers, pg.iterations))
+    (out, solvers, ran), (full, solvers_full, ran_full) = runs
+    assert solvers == solvers_full and ran_full == 20
+    differ = [k for k, a, b in zip(out._fields, out, full) if not torch.equal(a, b)]
+    assert not differ, differ
+    return out, solvers, ran
+
+
 def test_essential_graph():
+    """JAX parity, and the early exit: the edge buffer has dead lanes, so
+    the solve stops after one linearization, bit-equal to the full loop."""
     jcl, tcl = _closers()
     _, _, ot = _corrected()
     if jcl._essential_device is None:
         jcl._essential_device = jcl._build_essential_device()
     oj = jcl._essential_device(_jstate(ot), jnp.asarray(QUERY, jnp.int32),
                                jnp.asarray(MATCH, jnp.int32))
-    out = tcl._essential(interop.map_state_from_numpy(ot), QUERY, MATCH)
+    out, solvers, ran = _essential_exit_vs_full(tcl, ot)
+    assert solvers == ["dense"] and ran == 1
     _assert_same_map(interop.map_state_to_numpy(out),
                      {k: np.asarray(v) for k, v in oj._asdict().items()})
 
@@ -515,8 +547,10 @@ def test_essential_graph_at_default_capacities():
     capacities (512 keyframes, 65,536 points, 2,048 features): past
     K = 384 both loop closers run the CG essential graph, and the results
     agree as in test_essential_graph. The edge buffer has dead lanes, so
-    the CG solve, like the dense one, returns its input (ROADMAP queue 3;
-    test_torch_pose_graph.py::test_cg_matches_jax[dead_lanes])."""
+    the CG solve, like the dense one, returns its input
+    (test_torch_pose_graph.py::test_cg_matches_jax[dead_lanes]); the port's
+    early exit stops it after one linearization, bit-equal to the full
+    loop."""
     from orbslam_mapsave_tpu_torch import config as tcfg
 
     cfg = tcfg.SystemConfig()
@@ -528,18 +562,7 @@ def test_essential_graph_at_default_capacities():
         jcl._essential_device = jcl._build_essential_device()
     oj = jcl._essential_device(_jstate(h), jnp.asarray(QUERY, jnp.int32),
                                jnp.asarray(MATCH, jnp.int32))
-    solvers = []
-    solve = tlc.pose_graph.optimize_pose_graph
-
-    def recorded(prob, *a, **k):
-        solvers.append(k.get("solver"))
-        return solve(prob, *a, **k)
-
-    tlc.pose_graph.optimize_pose_graph = recorded
-    try:
-        out = tcl._essential(interop.map_state_from_numpy(h), QUERY, MATCH)
-    finally:
-        tlc.pose_graph.optimize_pose_graph = solve
-    assert solvers == ["cg"]
+    out, solvers, ran = _essential_exit_vs_full(tcl, h)
+    assert solvers == ["cg"] and ran == 1
     _assert_same_map(interop.map_state_to_numpy(out),
                      {k: np.asarray(v) for k, v in oj._asdict().items()})

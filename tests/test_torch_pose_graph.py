@@ -2,23 +2,29 @@
 against the JAX package on the drifted-ring problem of `test_pose_graph.py`
 (made from a seed with numpy), with a fixed vertex, an invalid vertex, dead
 edge lanes and a scaled vertex. Residuals, Jacobians and optimized Sim3
-poses within 1e-4; corrected points within 1e-4."""
+poses within 1e-4; corrected points within 1e-4. The port's early exit
+(a first gradient non-finite on every free entry) against its own full
+loop, bit for bit."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from functools import lru_cache
+
 from test_pose_graph import pose_err, ring_problem
 
 from orbslam_mapsave_tpu.geometry import se3 as jse3
 from orbslam_mapsave_tpu.optim import pose_graph as jpg
+from orbslam_mapsave_tpu_torch.geometry import se3 as tse3
 from orbslam_mapsave_tpu_torch.optim import pose_graph as tpg
 
 torch.set_num_threads(2)
 TOL = 1e-4
 
 
+@lru_cache(maxsize=4)
 def _problem(seed=42, K=48, pad=0):
     """The ring problem plus what an essential graph holds: vertex 3 scaled
     by 1.05 (a loop-corrected Sim3), vertex 20 invalid, uneven edge weights,
@@ -121,7 +127,8 @@ def test_cg_matches_jax(variant):
     (the loop closer's edge buffer) the NaN forward-mode Jacobian of the
     identity edge makes the first CG residual norm NaN, the CG loop stops
     before its first step in both packages, and the solve returns its input
-    (orthonormalized), as the dense route does (ROADMAP queue 3)."""
+    (orthonormalized), as the dense route does; the port's early exit stops
+    there after one linearization (test_early_exit_equals_full_loop)."""
     if variant == "ring":
         jprob, _ = ring_problem(np.random.default_rng(42))
         tprob = tpg.PoseGraphProblem(**{k: torch.from_numpy(np.array(v))
@@ -139,3 +146,93 @@ def test_cg_matches_jax(variant):
         np.testing.assert_allclose(St.numpy(), Sd.numpy(), atol=1e-3)
     if variant == "dead_lanes":
         np.testing.assert_allclose(St.numpy(), tprob.S_init.numpy(), atol=TOL)
+
+
+def _nan_measurement():
+    """test_failed_factorization_gives_zero_step's problem."""
+    _, tprob, _ = _problem()
+    meas = tprob.edge_meas.clone()
+    meas[4] = float("nan")
+    return tprob._replace(edge_meas=meas)
+
+
+def _negative_weight():
+    """A finite gradient whose system does not factorize at small lambda: one
+    edge's information is negative, so the damped Hessian is indefinite
+    until the rejected steps have raised lambda far enough."""
+    _, tprob, _ = _problem()
+    wt = tprob.edge_weight.clone()
+    wt[5] = -50.0
+    return tprob._replace(edge_weight=wt)
+
+
+def _rotated_slot0():
+    """Dead lanes (0, 0) whose measurement the loop closer's way, S_0
+    se3_inv(S_0), on a rotated slot-0 pose: the dead lanes' residual need
+    not be exactly the identity."""
+    _, tprob, _ = _problem(pad=6)
+    S = tprob.S_init.clone()
+    S[0] = tse3.se3_exp(torch.tensor([0.3, -0.2, 0.1, 0.4, -0.7, 0.25])) @ S[0]
+    meas = tprob.edge_meas.clone()
+    dead = ~tprob.edge_valid
+    meas[dead] = S[0] @ tse3.se3_inv(S[0])
+    return tprob._replace(S_init=S, edge_meas=meas)
+
+
+def _perturbed():
+    """The essential graph's construction on its live edges (chip_smoke's
+    `_essential_solve`): every measurement taken from the poses the graph
+    starts at, each free vertex then moved by a small Sim3 drawn from a
+    seed, so that the solve must carry the vertices back."""
+    _, tprob, _ = _problem()
+    S = tprob.S_init
+    meas = S[tprob.edge_i.long()] @ tse3.se3_inv(S[tprob.edge_j.long()])
+    rng = np.random.default_rng(5)
+    xi = np.concatenate([rng.normal(scale=0.01, size=(S.shape[0], 6)),
+                         rng.normal(scale=0.002, size=(S.shape[0], 1))], 1).astype(np.float32)
+    xi[0] = 0.0  # the fixed vertex
+    return tprob._replace(S_init=tse3.sim3_exp(torch.from_numpy(xi)) @ S, edge_meas=meas)
+
+
+# case: (problem, solver, whether the exit fires; None: either way)
+EXIT_CASES = {
+    "dead_lanes_dense": (lambda: _problem(pad=6)[1], "dense", True),
+    "dead_lanes_cg": (lambda: _problem(pad=6)[1], "cg", True),
+    "nan_measurement": (_nan_measurement, "dense", True),
+    "live_dense": (lambda: _problem()[1], "dense", False),
+    "live_cg": (lambda: _problem()[1], "cg", False),
+    "perturbed": (_perturbed, "dense", False),
+    "finite_g_failed_factorization": (_negative_weight, "dense", False),
+    "dead_lanes_rotated_slot0": (_rotated_slot0, "dense", None),
+}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN included (a NaN measurement's chi2 is NaN)."""
+    return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", list(EXIT_CASES))
+def test_early_exit_equals_full_loop(case):
+    """`optimize_pose_graph` against `_optimize_pose_graph_full` (the same
+    loop without the exit), 20 iterations: S and chi2 bit-equal (NaN
+    included); the
+    iteration counter reads 1 where the exit fires and 20 where it must
+    not."""
+    make, solver, fires = EXIT_CASES[case]
+    prob = make()
+    tpg.reset_iterations()
+    S, chi2 = tpg.optimize_pose_graph(prob, n_iters=20, solver=solver)
+    ran = tpg.iterations
+    tpg.reset_iterations()
+    S_full, chi2_full = tpg._optimize_pose_graph_full(prob, n_iters=20, solver=solver)
+    assert tpg.iterations == 20
+    assert _same_bits(S, S_full) and _same_bits(chi2, chi2_full)
+    if fires is not None:
+        assert ran == (1 if fires else 20)
+    else:
+        assert ran in (1, 20)
+    if fires:  # the stall: the input, orthonormalized
+        assert torch.equal(S, tse3.sim3_orthonormalize(prob.S_init))
+    if case in ("perturbed", "finite_g_failed_factorization"):  # the solve moves
+        assert (S - tse3.sim3_orthonormalize(prob.S_init)).abs().max() > TOL

@@ -232,11 +232,13 @@ def recording(slam):
     compaction (kind, ms of the `_maybe_compact` call that ran it), each
     loop event's query / match frame ids (read when it is corrected: a
     keyframe compaction renumbers the slots an event holds), the solver of
-    each global-BA job and essential graph. Every timing is bracketed by
+    each global-BA job and essential graph, and the LM iterations each
+    essential graph ran (1: the solver's early exit fired; 20: it did
+    not). Every timing is bracketed by
     device syncs. Yields the record."""
     dev = slam.device
     rec = dict(map_step_ms=[], compactions=[], events=[], gba_solvers=[],
-               essential_solvers=[])
+               essential_solvers=[], essential_iterations=[])
     lc, mapper = slam.loop_closer, slam.mapper
     kinds: list = []
     originals = dict(points=mapstate.compact_points, keyframes=mapstate.compact_keyframes)
@@ -274,7 +276,10 @@ def recording(slam):
 
     def recorded_graph(prob, *a, **k):
         rec["essential_solvers"].append(k.get("solver", "dense"))
-        return solve_graph(prob, *a, **k)
+        pose_graph.reset_iterations()
+        out = solve_graph(prob, *a, **k)
+        rec["essential_iterations"].append(pose_graph.iterations)
+        return out
 
     def recorded_job(job, *a, **k):
         job_init(job, *a, **k)
@@ -354,6 +359,7 @@ def summary(slam, rec: dict, frame_ms: np.ndarray, wall: float, gt: np.ndarray) 
         loops=len(rec["events"]), events=rec["events"],
         gba_applied=lc.gba_applied if lc else 0, gba_aborted=lc.gba_aborted if lc else 0,
         gba_solvers=rec["gba_solvers"], essential_solvers=rec["essential_solvers"],
+        essential_iterations=rec["essential_iterations"],
         gba_solver=", ".join(sorted(set(rec["gba_solvers"]))) or None,
         pose_graph_solver=", ".join(sorted(set(rec["essential_solvers"]))) or None,
         compactions=len(rec["compactions"]), point_compactions=kinds.count("points"),
