@@ -18,7 +18,11 @@ plain PyTorch path). `--sensor mono` reads the TUM rgb.txt images alone;
 right, times.txt). The viewer (`viz/`): `--viewer-dir DIR` (or `UseViewer:
 1`) writes a frame overlay and a map PNG every 10 frames, `--html-view
 FILE` writes an interactive HTML map view at the end, and `--html-live N`
-rewrites that file every N new keyframes during the run.
+rewrites that file every N new keyframes during the run. `--trace-dir DIR`
+turns the program's tracer on (`utils/metrics`) and at exit writes
+`DIR/metrics.json` (per-span calls, total and self ms, counters, host syncs
+by span and by file:line) and `DIR/spans.json` (the spans as a Chrome
+trace on the Unix-epoch clock of a `torch.profiler` trace).
 """
 
 from __future__ import annotations
@@ -59,8 +63,25 @@ def main(argv=None):
     ap.add_argument("--follow-timeout", type=float, default=5.0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the plain path)")
+    ap.add_argument("--trace-dir", type=Path,
+                    help="trace the run: write metrics.json and spans.json here at exit")
     args = ap.parse_args(argv)
+    if args.trace_dir is None:
+        return _run(args)
+    from ..utils import metrics
 
+    metrics.enable()
+    try:
+        return _run(args)
+    finally:
+        metrics.disable()
+        args.trace_dir.mkdir(parents=True, exist_ok=True)
+        metrics.dump(args.trace_dir / "metrics.json")
+        metrics.export_chrome(args.trace_dir / "spans.json")
+        print(f"trace written to {args.trace_dir}")
+
+
+def _run(args):
     from .. import config as config_mod
     from ..io import dataset as dataset_mod
     from ..pipeline import system as system_mod

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import metrics
 from .orb_pattern import BIT_PATTERN_31
 
 HALF_PATCH = 15  # ORBextractor.cc:73
@@ -281,29 +282,31 @@ def detect_level(spec: ORBSpec, ls: LevelSpec, padded: torch.Tensor):
 
     Returns (xy (C,2) int32 level coords, score (C,) f32), invalid entries
     scored 0. C = ls.cand_cap."""
-    img = padded[EDGE: EDGE + ls.height, EDGE: EDGE + ls.width]
-    score_min = _nms3(fast_score_map(img, spec.min_th))
-    b = EDGE - 3  # minBorder (src/ORBextractor.cc:770-775)
     dev = padded.device
-    ys = torch.arange(ls.height, device=dev)[:, None]
-    xs = torch.arange(ls.width, device=dev)[None, :]
-    inb = (ys >= b) & (ys < ls.height - b) & (xs >= b) & (xs < ls.width - b)
-    score_min = torch.where(inb, score_min, torch.zeros_like(score_min))
+    with metrics.span("orb.fast_nms"):
+        img = padded[EDGE: EDGE + ls.height, EDGE: EDGE + ls.width]
+        score_min = _nms3(fast_score_map(img, spec.min_th))
+        b = EDGE - 3  # minBorder (src/ORBextractor.cc:770-775)
+        ys = torch.arange(ls.height, device=dev)[:, None]
+        xs = torch.arange(ls.width, device=dev)[None, :]
+        inb = (ys >= b) & (ys < ls.height - b) & (xs >= b) & (xs < ls.width - b)
+        score_min = torch.where(inb, score_min, torch.zeros_like(score_min))
 
-    # dual threshold per cell (src/ORBextractor.cc:808-815)
-    cy, cx, cell = ls.n_cells_y, ls.n_cells_x, ls.cell
-    crop = score_min[: cy * cell, : cx * cell]
-    cells = crop.reshape(cy, cell, cx, cell).permute(0, 2, 1, 3)
-    has_ini = torch.amax(cells, dim=(2, 3)) > spec.ini_th
-    keep = torch.where(has_ini[:, :, None, None], cells > spec.ini_th, cells > 0.0)
-    cells = torch.where(keep, cells, torch.zeros_like(cells))
+    with metrics.span("orb.topk"):
+        # dual threshold per cell (src/ORBextractor.cc:808-815)
+        cy, cx, cell = ls.n_cells_y, ls.n_cells_x, ls.cell
+        crop = score_min[: cy * cell, : cx * cell]
+        cells = crop.reshape(cy, cell, cx, cell).permute(0, 2, 1, 3)
+        has_ini = torch.amax(cells, dim=(2, 3)) > spec.ini_th
+        keep = torch.where(has_ini[:, :, None, None], cells > spec.ini_th, cells > 0.0)
+        cells = torch.where(keep, cells, torch.zeros_like(cells))
 
-    topv, topi = topk_stable(cells.reshape(cy * cx, cell * cell), ls.k_per_cell)
-    cell_ids = torch.arange(cy * cx, device=dev)
-    yy = (cell_ids // cx)[:, None] * cell + topi // cell
-    xx = (cell_ids % cx)[:, None] * cell + topi % cell
-    xy = torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1).to(torch.int32)
-    return xy, topv.reshape(-1)
+        topv, topi = topk_stable(cells.reshape(cy * cx, cell * cell), ls.k_per_cell)
+        cell_ids = torch.arange(cy * cx, device=dev)
+        yy = (cell_ids // cx)[:, None] * cell + topi // cell
+        xx = (cell_ids % cx)[:, None] * cell + topi % cell
+        xy = torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1).to(torch.int32)
+        return xy, topv.reshape(-1)
 
 
 def gaussian_blur7(padded: torch.Tensor) -> torch.Tensor:
@@ -375,6 +378,7 @@ def brief_from_patches(patches43: torch.Tensor, angles_deg: torch.Tensor
     return torch.sum(bits.reshape(c, 32, 8) * weights, dim=-1).to(torch.uint8)
 
 
+@metrics.traced("orb.extract")
 def extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
     """Full ORB extraction on one grayscale image (H,W) float32 [0,255].
 
@@ -395,22 +399,26 @@ def extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None = None
     dev = image.device
     if mask is not None:
         mask = torch.as_tensor(mask).to(dev, torch.float32)
-    pyramid = build_pyramid(spec, image)
+    with metrics.span("orb.pyramid"):
+        pyramid = build_pyramid(spec, image)
     all_xy, all_resp, all_ang, all_oct, all_desc = [], [], [], [], []
     W43 = 2 * DESC_PAD + 1
     for lvl, ls in enumerate(spec.levels):
         padded = pyramid[lvl]
         xy, score = detect_level(spec, ls, padded)
-        if mask is not None:
-            m = resize_mask_nearest(mask, ls.height, ls.width)
-            xyl = xy.long()
-            score = torch.where(m[xyl[:, 1], xyl[:, 0]] > 0, score, torch.zeros_like(score))
-        score_sel, sel = topk_stable(score, min(ls.budget, score.shape[0]))
-        xy = xy[sel]
-        blurred = torch.round(gaussian_blur7(padded))
-        pp = cut_patches_2ch(torch.stack([padded, blurred]), xy)
-        ang = ic_angles_from_patches(pp[:, 0])
-        desc = brief_from_patches(pp[:, 1, 3:3 + W43, 3:3 + W43], ang)
+        with metrics.span("orb.topk"):
+            if mask is not None:
+                m = resize_mask_nearest(mask, ls.height, ls.width)
+                xyl = xy.long()
+                score = torch.where(m[xyl[:, 1], xyl[:, 0]] > 0, score, torch.zeros_like(score))
+            score_sel, sel = topk_stable(score, min(ls.budget, score.shape[0]))
+            xy = xy[sel]
+        with metrics.span("orb.patches"):
+            blurred = torch.round(gaussian_blur7(padded))
+            pp = cut_patches_2ch(torch.stack([padded, blurred]), xy)
+        with metrics.span("orb.angle_brief"):
+            ang = ic_angles_from_patches(pp[:, 0])
+            desc = brief_from_patches(pp[:, 1, 3:3 + W43, 3:3 + W43], ang)
         all_xy.append(xy.to(torch.float32) * ls.scale)
         all_resp.append(torch.where(score_sel > 0, score_sel,
                                     torch.full_like(score_sel, -math.inf)))

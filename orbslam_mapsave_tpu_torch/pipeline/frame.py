@@ -17,6 +17,7 @@ import torch
 
 from ..geometry import projection
 from ..ops import hamming, orb, stereo
+from ..utils import metrics
 
 
 class FrameData(NamedTuple):
@@ -49,6 +50,7 @@ class FrameBuilder:
         self.inv_level_sigma2_t = torch.from_numpy(self.inv_level_sigma2).to(self.device)
         self.bounds_t = torch.from_numpy(self.bounds).to(self.device)
 
+    @metrics.traced("build.frame")
     def build(self, image, timestamp: float, depth=None, mask=None) -> FrameData:
         """Frame from an image (H,W) and, for RGB-D, a depth map (H,W) in
         meters, in any numeric dtype (u8 image and f16 depth are what a
@@ -64,15 +66,17 @@ class FrameBuilder:
         if depth is None:
             ur = d = none
         else:
-            depth = torch.as_tensor(depth).to(self.device, torch.float32)
-            # sample depth at the rounded raw keypoint coords, Frame.cc:765-768
-            xi = torch.clamp(torch.round(kp["xy"][:, 0]).long(), 0, depth.shape[1] - 1)
-            yi = torch.clamp(torch.round(kp["xy"][:, 1]).long(), 0, depth.shape[0] - 1)
-            d = depth[yi, xi]
-            has_d = d > 0
-            ur = torch.where(has_d, und[:, 0] - cam.bf / torch.where(has_d, d, torch.ones_like(d)),
-                             none)
-            d = torch.where(has_d, d, none)
+            with metrics.span("build.depth"):
+                depth = torch.as_tensor(depth).to(self.device, torch.float32)
+                # sample depth at the rounded raw keypoint coords, Frame.cc:765-768
+                xi = torch.clamp(torch.round(kp["xy"][:, 0]).long(), 0, depth.shape[1] - 1)
+                yi = torch.clamp(torch.round(kp["xy"][:, 1]).long(), 0, depth.shape[0] - 1)
+                d = depth[yi, xi]
+                has_d = d > 0
+                ur = torch.where(has_d,
+                                 und[:, 0] - cam.bf / torch.where(has_d, d, torch.ones_like(d)),
+                                 none)
+                d = torch.where(has_d, d, none)
         return FrameData(
             timestamp=torch.tensor(timestamp, dtype=torch.float32, device=self.device),
             kp_xy_raw=kp["xy"],
@@ -87,6 +91,7 @@ class FrameBuilder:
             valid=kp["valid"],
         )
 
+    @metrics.traced("build.frame")
     def build_stereo(self, image_left, image_right, timestamp: float) -> FrameData:
         """Stereo frame (`Frame::Frame`, `src/Frame.cc:63-122`): ORB from
         both images, left-right matches on the raw keypoints for each left
@@ -97,10 +102,11 @@ class FrameBuilder:
         right = torch.as_tensor(image_right).to(self.device, torch.float32)
         kl, kr = orb.extract(self.spec, left), orb.extract(self.spec, right)
         bits_l = hamming.unpack_bits(kl["desc"])
-        ur, d = stereo.compute_stereo_matches(
-            self.spec, left, right, kl["xy"], kl["octave"], bits_l, kl["valid"],
-            kr["xy"], kr["octave"], hamming.unpack_bits(kr["desc"]), kr["valid"],
-            bf=float(cam.bf), fx=float(cam.fx))
+        with metrics.span("build.stereo"):
+            ur, d = stereo.compute_stereo_matches(
+                self.spec, left, right, kl["xy"], kl["octave"], bits_l, kl["valid"],
+                kr["xy"], kr["octave"], hamming.unpack_bits(kr["desc"]), kr["valid"],
+                bf=float(cam.bf), fx=float(cam.fx))
         return FrameData(
             timestamp=torch.tensor(timestamp, dtype=torch.float32, device=self.device),
             kp_xy_raw=kl["xy"],

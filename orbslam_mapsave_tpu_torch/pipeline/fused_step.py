@@ -17,6 +17,7 @@ import torch
 
 from ..geometry import se3
 from ..slammap import mapstate as ms
+from ..utils import metrics
 from . import frame as frame_mod
 from . import tracking as trk
 
@@ -82,6 +83,7 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
         return torch.full((frame.kp_xy.shape[0],), -1, dtype=torch.int32,
                           device=frame.kp_xy.device)
 
+    @metrics.traced("track.outcome")
     def _outcome(state, mode, pose, n_inliers=0, kf_slot=-1, ba_dropped=0,
                  ba_esc=False, mb_vo=False):
         return StepOutcome(
@@ -140,37 +142,45 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
         pose_pred = ctrl.velocity @ ctrl.pose
         ok1, use_vo = False, False
         if ctrl.has_velocity:
-            m, pw, have, nm = k["track_motion"](
-                state, frame, pose_pred, ctrl.last_matched, ctrl.last_frame,
-                cfg.motion_th, ctrl.pose, only_tracking)
-            if int(nm) < 20:
+            with metrics.span("track.motion"):
                 m, pw, have, nm = k["track_motion"](
-                    state, frame, pose_pred, ctrl.last_matched,
-                    ctrl.last_frame, 2.0 * cfg.motion_th, ctrl.pose, only_tracking)
-            if int(nm) >= 20:
-                pose1, m1, ninl, nmap = k["optimize_pose_xyz"](
-                    state, frame, pose_pred, pw, have, m)
-                if only_tracking:
-                    ok1 = int(ninl) > 20
-                    use_vo = int(nmap) < 10 and int(ninl) > 20
-                else:
-                    ok1 = int(nmap) >= 10
+                    state, frame, pose_pred, ctrl.last_matched, ctrl.last_frame,
+                    cfg.motion_th, ctrl.pose, only_tracking)
+                if int(nm) < 20:
+                    m, pw, have, nm = k["track_motion"](
+                        state, frame, pose_pred, ctrl.last_matched,
+                        ctrl.last_frame, 2.0 * cfg.motion_th, ctrl.pose, only_tracking)
+                enough = int(nm) >= 20
+            if enough:
+                with metrics.span("track.pose_lm"):
+                    pose1, m1, ninl, nmap = k["optimize_pose_xyz"](
+                        state, frame, pose_pred, pw, have, m)
+                    if only_tracking:
+                        ok1 = int(ninl) > 20
+                        use_vo = int(nmap) < 10 and int(ninl) > 20
+                    else:
+                        ok1 = int(nmap) >= 10
         if not ok1:
-            m, nm = k["track_ref_kf"](state, frame, ctrl.ref_kf)
-            pose1, m1 = ctrl.pose, m
-            if int(nm) >= 15:
-                pose1, m1, ninl = k["optimize_pose"](state, frame, ctrl.pose, m)
-                ok1 = int(ninl) >= 10
+            with metrics.span("track.ref_kf"):
+                m, nm = k["track_ref_kf"](state, frame, ctrl.ref_kf)
+                pose1, m1 = ctrl.pose, m
+                enough = int(nm) >= 15
+            if enough:
+                with metrics.span("track.pose_lm"):
+                    pose1, m1, ninl = k["optimize_pose"](state, frame, ctrl.pose, m)
+                    ok1 = int(ninl) >= 10
 
         # local-map tracking runs even if the first track failed, as in the
         # JAX step (it cannot rescue it: the outcome is gated on ok1); under
         # mb_vo its result is dropped (the reference skips it there,
         # `src/Tracking.cc:654-660`)
-        local_idx, ref2 = k["gather_local_map"](state, m1, pose1)
-        state2, pose2, m2, n_inl = k["track_local_map"](
-            state, frame, pose1, m1, local_idx, cfg.local_th)
-        n_inl = int(n_inl)
-        ref2 = int(ref2)
+        with metrics.span("track.local_map_gather"):
+            local_idx, ref2 = k["gather_local_map"](state, m1, pose1)
+        with metrics.span("track.local_map_search"):
+            state2, pose2, m2, n_inl = k["track_local_map"](
+                state, frame, pose1, m1, local_idx, cfg.local_th)
+            n_inl = int(n_inl)
+            ref2 = int(ref2)
         ok2 = ok1 and (use_vo or n_inl >= 30)  # Tracking.cc:1213-1219
         if use_vo:
             pose2, m2 = pose1, m1
@@ -178,14 +188,18 @@ def make_fused_step(cam, builder: frame_mod.FrameBuilder, n_levels: int,
             state2 = state
 
         kf_slot, m3, state3 = -1, m2, state2
-        if ok2 and ctrl.allow_kf and _need_new_keyframe(state2, frame, m2, n_inl,
-                                                        ref2, ctrl):
-            if is_mono:
-                state3, kf_slot = k["create_keyframe_mono"](
-                    state2, frame, pose2, m2, ctrl.frame_id)
-            else:
-                state3, kf_slot, m3 = k["create_keyframe_rgbd"](
-                    state2, frame, pose2, m2, ctrl.frame_id, cfg.th_depth)
+        need_kf = False
+        if ok2 and ctrl.allow_kf:
+            with metrics.span("track.kf_decision"):
+                need_kf = _need_new_keyframe(state2, frame, m2, n_inl, ref2, ctrl)
+        if need_kf:
+            with metrics.span("track.kf_create"):
+                if is_mono:
+                    state3, kf_slot = k["create_keyframe_mono"](
+                        state2, frame, pose2, m2, ctrl.frame_id)
+                else:
+                    state3, kf_slot, m3 = k["create_keyframe_rgbd"](
+                        state2, frame, pose2, m2, ctrl.frame_id, cfg.th_depth)
 
         # ---- predicated LocalMapping pass ----
         do_kf = kf_slot >= 0

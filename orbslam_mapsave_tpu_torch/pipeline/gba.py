@@ -25,6 +25,7 @@ from ..optim import global_ba
 from ..parallel import dist_gba
 from ..parallel import mesh as pmesh
 from ..slammap import mapstate as ms
+from ..utils import metrics
 
 
 class GBAJob:
@@ -47,6 +48,7 @@ class GBAJob:
             mesh = pmesh.make_mesh(device=state.device)
             self.kf_pose_gba, self.pt_pos_gba, self.cost = dist_gba.distributed_full_ba(
                 cam, state, isig, mesh, n_iters=n_iters)
+            metrics.count("gba.iters.multi-rank", n_iters)
             self.iters_left = 0
             return
         # the solver rule of the JAX version: memory is capacity-driven
@@ -66,8 +68,10 @@ class GBAJob:
         if self.aborted:
             return False
         while self.iters_left > 0 and max_iters > 0:
-            self._carry = global_ba.gba_iterate(self._cam, self._tb, *self._carry,
-                                                solver=self._solver)
+            metrics.count(f"gba.iters.{self._solver}")
+            with metrics.span("gba.iterate"):
+                self._carry = global_ba.gba_iterate(self._cam, self._tb, *self._carry,
+                                                    solver=self._solver)
             self.iters_left -= 1
             max_iters -= 1
         return self.iters_left > 0

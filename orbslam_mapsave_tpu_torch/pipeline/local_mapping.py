@@ -26,6 +26,7 @@ from ..geometry import projection
 from ..ops import hamming, matching
 from ..optim import local_ba
 from ..slammap import mapstate as ms
+from ..utils import metrics
 
 C_CAP = 48  # max local cameras in a BA window
 L_CAP = 4096  # max points in a local BA window
@@ -332,7 +333,10 @@ class LocalMapper:
         self.n_levels = n_levels
         self.scale_factor = scale_factor
         self.recent_start: int | None = None  # first "recent" point slot
-        self.ba_lane_log: list[tuple[int, bool]] = []  # (dropped, escalated)
+        # over the steps `process` ran: BA observation lanes dropped even
+        # after escalation, and the steps whose BA escalated
+        self.ba_lanes_dropped = 0
+        self.ba_escalations = 0
         if scale_factors is None:
             scale_factors = [scale_factor**i for i in range(n_levels)]
         self.scale_factors = np.asarray(scale_factors, np.float32)
@@ -358,11 +362,14 @@ class LocalMapper:
         win = build_ba_window(state, kf_slot)
         escalate = int(count_truncated_ba_lanes(state, win, O_BA)) > 0
         dropped = int(count_truncated_ba_lanes(state, win, O_BA_ESC)) if escalate else 0
+        metrics.count("mapping.ba_escalated", escalate)
+        metrics.count("mapping.ba_lanes_dropped", dropped)
         prob = assemble_ba_obs(state, win, inv_ls2, O_BA_ESC if escalate else O_BA)
         res = local_ba.local_bundle_adjustment(self.cam, prob, abort=abort)
         state = apply_ba_result(state, res, win["cam_slots"], win["lidx"], prob)
         return state, dropped, escalate
 
+    @metrics.traced("mapping.fuse_reverse")
     def _reverse_fuse(self, state: ms.MapState, kf_slot: int, neigh: torch.Tensor):
         """Direction 2 of `SearchInNeighbors` (`src/LocalMapping.cc:505-518`):
         match the new keyframe's points into each of the N_REV_FUSE closest
@@ -415,6 +422,7 @@ class LocalMapper:
         return ms.add_observations_rows_dup(state, nb_rows, torch.where(addable, cand_pt, -1),
                                             feat_rows, addable)
 
+    @metrics.traced("mapping.step")
     def _map_step(self, state: ms.MapState, kf_slot: int, recent_start: int,
                   abort: bool):
         """One `LocalMapping::Run` loop body: culling -> triangulation ->
@@ -424,33 +432,41 @@ class LocalMapper:
         inv_ls2, scale_t, bounds_t = self._t(state.device)
         P = state.pt_capacity
         slots = torch.arange(P, device=state.device)
-        recent = (slots >= recent_start) & (slots < state.n_pt)
-        state = recent_point_culling(state, recent, kf_slot, self.is_mono)
+        with metrics.span("mapping.cull_points"):
+            recent = (slots >= recent_start) & (slots < state.n_pt)
+            state = recent_point_culling(state, recent, kf_slot, self.is_mono)
 
-        neigh = ms.covisible_keyframes(state, kf_slot, self.n_tri_neighbors)
-        state, new = self.tri.batched(state, kf_slot, neigh)
-        state = self.tri.finalize_idx(state, torch.clamp(new, min=0), new >= 0)
-        state = ms.update_connections(state, kf_slot)
+        with metrics.span("mapping.triangulate"):
+            neigh = ms.covisible_keyframes(state, kf_slot, self.n_tri_neighbors)
+            state, new = self.tri.batched(state, kf_slot, neigh)
+            state = self.tri.finalize_idx(state, torch.clamp(new, min=0), new >= 0)
+            state = ms.update_connections(state, kf_slot)
 
         # `SearchInNeighbors` (`src/LocalMapping.cc:454-534`), target ->
         # current: fuse the neighbourhood's points into the new keyframe
-        pts_nb = torch.where((neigh >= 0)[:, None], state.kf_kp_point[_clip0(neigh)], -1)
-        cand = ms.unique_compact_ids(pts_nb.reshape(-1), P, min(FUSE_CAP, P), state.pt_valid)
-        state = fuse_into_keyframe(state, kf_slot, cand, cam, bounds_t, scale_t,
-                                   inv_ls2, n_levels, sf)
+        with metrics.span("mapping.fuse"):
+            pts_nb = torch.where((neigh >= 0)[:, None], state.kf_kp_point[_clip0(neigh)], -1)
+            cand = ms.unique_compact_ids(pts_nb.reshape(-1), P, min(FUSE_CAP, P),
+                                         state.pt_valid)
+            state = fuse_into_keyframe(state, kf_slot, cand, cam, bounds_t, scale_t,
+                                       inv_ls2, n_levels, sf)
         state = self._reverse_fuse(state, kf_slot, neigh)
         # refresh the fused points' descriptors / normals + connections
         # (`src/LocalMapping.cc:521-532`)
-        own = state.kf_kp_point[kf_slot]
-        state = ms.compute_distinctive_descriptors_idx(state, torch.clamp(own, min=0), own >= 0)
-        state = ms.update_normal_and_depth_idx(state, torch.clamp(own, min=0), own >= 0,
-                                               self.scale_factors, n_levels)
-        state = ms.update_connections(state, kf_slot)
+        with metrics.span("mapping.refresh"):
+            own = state.kf_kp_point[kf_slot]
+            state = ms.compute_distinctive_descriptors_idx(state, torch.clamp(own, min=0),
+                                                           own >= 0)
+            state = ms.update_normal_and_depth_idx(state, torch.clamp(own, min=0), own >= 0,
+                                                   self.scale_factors, n_levels)
+            state = ms.update_connections(state, kf_slot)
 
         if int(torch.sum(state.kf_valid.to(_I32))) <= 2:
             return state, 0, False
-        state, dropped, esc = self._ba(state, kf_slot, abort)
-        state = keyframe_culling(state, kf_slot)
+        with metrics.span("mapping.local_ba"):
+            state, dropped, esc = self._ba(state, kf_slot, abort)
+        with metrics.span("mapping.cull_keyframes"):
+            state = keyframe_culling(state, kf_slot)
         return state, dropped, esc
 
     def process(self, state: ms.MapState, kf_slot: int, abort: bool = False) -> ms.MapState:
@@ -458,13 +474,13 @@ class LocalMapper:
         if self.recent_start is None:
             self.recent_start = 0
         new_state, dropped, esc = self._map_step(state, int(kf_slot), self.recent_start, abort)
-        self.ba_lane_log.append((dropped, esc))
+        self.ba_lanes_dropped += dropped
+        self.ba_escalations += int(esc)
         # advance the recent window: points older than this keyframe leave
         self.recent_start = int(state.n_pt)
         return new_state
 
     def ba_lane_stats(self) -> tuple[int, int]:
         """(BA observation lanes dropped, escalated steps) over every
-        mapping step logged by `process`."""
-        return (sum(d for d, _ in self.ba_lane_log),
-                sum(int(e) for _, e in self.ba_lane_log))
+        mapping step `process` ran."""
+        return self.ba_lanes_dropped, self.ba_escalations

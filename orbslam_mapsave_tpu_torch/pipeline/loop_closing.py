@@ -36,6 +36,7 @@ from ..geometry import projection, se3
 from ..ops import hamming, matching, sim3solver
 from ..optim import pose_graph, sim3_opt
 from ..slammap import mapstate as ms
+from ..utils import metrics
 from ..vocab import database, vocabulary
 from . import gba as gba_mod
 from . import local_mapping
@@ -223,19 +224,24 @@ class LoopCloser:
         self.bow_store = database.SparseBowStore(word=word, weight=weight)
 
     # -- main entry --------------------------------------------------------
+    @metrics.traced("loop.process")
     def process(self, state: ms.MapState, kf: int) -> ms.MapState:
         """The LoopClosing::Run body for one keyframe: its BoW row goes into
         the store, the previous detection is read, and this keyframe's
         detection is computed to be read at the next keyframe."""
-        self._ensure_store(state)
-        words, weights = self.compute_bow(state, kf)
-        self.bow_store = database.add_keyframe_bow_sparse(self.bow_store, kf, words, weights)
+        with metrics.span("loop.bow"):
+            self._ensure_store(state)
+            words, weights = self.compute_bow(state, kf)
+            self.bow_store = database.add_keyframe_bow_sparse(self.bow_store, kf, words,
+                                                              weights)
         state = self.poll_detect(state)
         # slot allocation is monotone, so the slot bounds the keyframe count
         # (LoopClosing.cc:114-120 refractory gates)
         if kf - self.last_loop_kf < REFRACTORY_KFS or kf < 11:
             return state
-        self._pending_detect = (kf, _detect_device(self.bow_store, state, words, weights, kf))
+        with metrics.span("loop.detect"):
+            self._pending_detect = (kf, _detect_device(self.bow_store, state, words, weights,
+                                                       kf))
         return state
 
     def poll_detect(self, state: ms.MapState) -> ms.MapState:
@@ -250,12 +256,17 @@ class LoopCloser:
         self._pending_detect = None
         if kf - self.last_loop_kf < REFRACTORY_KFS:
             return state  # a loop closed in the meantime
-        cands = self._detect_host(kf, fut)[:SIM3_TRY]
+        with metrics.span("loop.consistency"):
+            cands = self._detect_host(kf, fut)[:SIM3_TRY]
         if not cands:
             return state
+        metrics.count("loop.sim3_lanes", len(cands))
         gen = torch.Generator(device=state.device)
         gen.manual_seed(kf)
-        outs = [self._sim3_chain(state, kf, c, generator=gen) for c in cands]
+        outs = []
+        for c in cands:
+            with metrics.span("loop.sim3_lane"):
+                outs.append(self._sim3_chain(state, kf, c, generator=gen))
         self._pending_sim3 = (kf, cands, self._select_lane(outs))
         return state
 
@@ -269,6 +280,7 @@ class LoopCloser:
         sel["which"] = best
         return sel
 
+    @metrics.traced("loop.poll_sim3")
     def _poll_sim3(self, state: ms.MapState) -> ms.MapState:
         """Read an enqueued Sim3-chain result; on acceptance, correct the
         CURRENT map state (the reference's loop thread also corrects a map
@@ -348,9 +360,10 @@ class LoopCloser:
         b2 = hamming.unpack_bits(state.kf_desc[cand])
         f1 = self._per_feature_points(state, kf)
         f2 = self._per_feature_points(state, cand)
-        matches, n = matching.search_by_descriptor(
-            b1, f1["ok"], b2, f2["ok"], state.kf_kp_angle[kf], state.kf_kp_angle[cand],
-            th=hamming.TH_LOW, nn_ratio=0.75)
+        with metrics.span("sim3.match"):
+            matches, n = matching.search_by_descriptor(
+                b1, f1["ok"], b2, f2["ok"], state.kf_kp_angle[kf], state.kf_kp_angle[cand],
+                th=hamming.TH_LOW, nn_ratio=0.75)
         ok_n = n >= 20  # LoopClosing.cc:268
         m_ok = matches >= 0
         m_safe = _c0(matches)
@@ -361,26 +374,28 @@ class LoopCloser:
         uv2 = state.kf_kp_xy[cand][m_safe]
         o1 = torch.clamp(state.kf_kp_octave[kf], 0, nl - 1).long()
         o2 = torch.clamp(state.kf_kp_octave[cand][m_safe], 0, nl - 1).long()
-        S12, inl, _, ok_ransac = sim3solver.ransac_sim3(
-            pc1, pc2, uv1, uv2, N_HYP, fix_scale=self.fix_scale,
-            max_err1=sim3solver.CHI2_SIM3 * level_sigma2[o1],
-            max_err2=sim3solver.CHI2_SIM3 * level_sigma2[o2], valid=m_ok,
-            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, min_inliers=20,
-            hyp_idx=hyp_idx, generator=generator)
+        with metrics.span("sim3.ransac"):
+            S12, inl, _, ok_ransac = sim3solver.ransac_sim3(
+                pc1, pc2, uv1, uv2, N_HYP, fix_scale=self.fix_scale,
+                max_err1=sim3solver.CHI2_SIM3 * level_sigma2[o1],
+                max_err2=sim3solver.CHI2_SIM3 * level_sigma2[o2], valid=m_ok,
+                fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, min_inliers=20,
+                hyp_idx=hyp_idx, generator=generator)
 
         # guided extension (SearchBySim3, ORBmatcher.cc:1105-1329)
         match12 = torch.where(m_ok & inl, matches, -1)
         already1 = match12 >= 0
         already2 = local_mapping._scatter_max(
             state.n_features, _c0(match12), already1) > 0
-        extra12, _ = matching.search_by_sim3(
-            cam, T1, T2, S12,
-            uv1, state.kf_kp_octave[kf], b1, state.kf_kp_valid[kf], f1["world"], f1["ok"],
-            f1["mind"], f1["maxd"], f1["bits"],
-            state.kf_kp_xy[cand], state.kf_kp_octave[cand], b2, state.kf_kp_valid[cand],
-            f2["world"], f2["ok"], f2["mind"], f2["maxd"], f2["bits"],
-            already1, already2, bounds_t, scale_t, th=7.5,
-            n_levels=self.n_levels, scale_factor=self.scale_factor)
+        with metrics.span("sim3.guided"):
+            extra12, _ = matching.search_by_sim3(
+                cam, T1, T2, S12,
+                uv1, state.kf_kp_octave[kf], b1, state.kf_kp_valid[kf], f1["world"], f1["ok"],
+                f1["mind"], f1["maxd"], f1["bits"],
+                state.kf_kp_xy[cand], state.kf_kp_octave[cand], b2, state.kf_kp_valid[cand],
+                f2["world"], f2["ok"], f2["mind"], f2["maxd"], f2["bits"],
+                already1, already2, bounds_t, scale_t, th=7.5,
+                n_levels=self.n_levels, scale_factor=self.scale_factor)
         match12 = torch.where(match12 >= 0, match12, torch.where(extra12 >= 0, extra12, -1))
 
         # Sim3 optimization over the extended set (OptimizeSim3)
@@ -391,8 +406,9 @@ class LoopCloser:
             pc1=pc1, pc2=se3.transform_points(T2, f2["world"][e_safe]), uv1=uv1,
             uv2=state.kf_kp_xy[cand][e_safe], inv_sigma2_1=1.0 / level_sigma2[o1],
             inv_sigma2_2=1.0 / level_sigma2[o2e], valid=e_ok)
-        S12_opt, inl2, n2 = sim3_opt.optimize_sim3(cam, S12, obs,
-                                                  fix_scale=self.fix_scale)
+        with metrics.span("sim3.optimize"):
+            S12_opt, inl2, n2 = sim3_opt.optimize_sim3(cam, S12, obs,
+                                                      fix_scale=self.fix_scale)
         ok_n2 = n2 >= 20  # LoopClosing.cc:327-331
         matched_pt = torch.where(e_ok & inl2, f2["ids"][e_safe], -1).to(_I32)
         Scw = S12_opt @ T2  # mScw = gScm * gSmw (:333-336)
@@ -413,12 +429,13 @@ class LoopCloser:
         lp = _c0(loop_pts)
         matched_flag = local_mapping._scatter_max(P, _c0(matched_pt), matched_pt >= 0) > 0
         lp_ok = (loop_pts >= 0) & state.pt_valid[lp] & ~matched_flag[lp]
-        proj, _ = matching.search_by_projection_scw(
-            cam, Scw, state.pt_pos[lp], lp_ok, 0.8 * state.pt_min_dist[lp],
-            1.2 * state.pt_max_dist[lp], state.pt_normal[lp],
-            hamming.unpack_bits(state.pt_desc[lp]), uv1, state.kf_kp_octave[kf], b1,
-            state.kf_kp_valid[kf], matched_pt >= 0, bounds_t, scale_t, th=10.0,
-            n_levels=self.n_levels, scale_factor=self.scale_factor)
+        with metrics.span("sim3.project"):
+            proj, _ = matching.search_by_projection_scw(
+                cam, Scw, state.pt_pos[lp], lp_ok, 0.8 * state.pt_min_dist[lp],
+                1.2 * state.pt_max_dist[lp], state.pt_normal[lp],
+                hamming.unpack_bits(state.pt_desc[lp]), uv1, state.kf_kp_octave[kf], b1,
+                state.kf_kp_valid[kf], matched_pt >= 0, bounds_t, scale_t, th=10.0,
+                n_levels=self.n_levels, scale_factor=self.scale_factor)
         matched_pt = torch.where((matched_pt < 0) & (proj >= 0), loop_pts[_c0(proj)],
                                  matched_pt)
         total = torch.sum((matched_pt >= 0).to(_I32))
@@ -427,6 +444,7 @@ class LoopCloser:
                     loop_pts=loop_pts)
 
     # -- CorrectLoop -------------------------------------------------------
+    @metrics.traced("loop.correct")
     def _correct(self, state: ms.MapState, kf: int, match_kf: int, S_cl: torch.Tensor,
                  matched_pt: torch.Tensor, loop_pts: torch.Tensor) -> ms.MapState:
         """The loop correction (`src/LoopClosing.cc:403-583` minus pose graph
@@ -503,6 +521,7 @@ class LoopCloser:
         le[match_kf, free2] = kf
         return state._replace(kf_loop_edges=le)
 
+    @metrics.traced("loop.essential")
     def _essential(self, state: ms.MapState, kf: int, match_kf: int) -> ms.MapState:
         """Essential-graph pose relaxation (`Optimizer::OptimizeEssentialGraph`,
         `src/Optimizer.cc:781-1062`) over `essential_graph_problem`; points
@@ -511,8 +530,11 @@ class LoopCloser:
         valid = state.kf_valid
         poses = state.kf_pose
         prob = essential_graph_problem(state, kf, match_kf)
-        S_opt, _ = pose_graph.optimize_pose_graph(prob, n_iters=20,
-                                                  solver="dense" if K <= 384 else "cg")
+        route = "dense" if K <= 384 else "cg"
+        iters0 = pose_graph.iterations
+        S_opt, _ = pose_graph.optimize_pose_graph(prob, n_iters=20, solver=route)
+        metrics.count(f"loop.essential.{route}")
+        metrics.count("loop.essential_iters", pose_graph.iterations - iters0)
         # correct points through their reference KFs (Optimizer.cc:1031-1060)
         refs = state.pt_ref_kf
         safe_ref = torch.clamp(refs, 0, K - 1).long()
@@ -535,8 +557,9 @@ class LoopCloser:
         if self.pending_gba is not None:
             self.pending_gba.abort()
             self.gba_aborted += 1
-        self.pending_gba = gba_mod.GBAJob(state, self.cam, self._t(state.device)[1],
-                                          n_iters=N_GBA_ITERS)
+        with metrics.span("gba.init"):
+            self.pending_gba = gba_mod.GBAJob(state, self.cam, self._t(state.device)[1],
+                                              n_iters=N_GBA_ITERS)
         return state
 
     def remap_keyframes(self, new_of_old: np.ndarray) -> None:
@@ -563,6 +586,7 @@ class LoopCloser:
         if self.last_loop_kf >= 0:
             self.last_loop_kf = remap.get(self.last_loop_kf, -REFRACTORY_KFS - 1)
 
+    @metrics.traced("loop.poll_gba")
     def poll_gba(self, state: ms.MapState, force: bool = False) -> ms.MapState:
         """Pump the pending GBA job 2 LM iterations (all of them with force,
         the flush paths) and apply it once every iteration has run (the
@@ -579,6 +603,7 @@ class LoopCloser:
         self.pending_gba = None
         if job.aborted:
             return state
-        state = job.apply(state)
+        with metrics.span("gba.apply"):
+            state = job.apply(state)
         self.gba_applied += 1
         return state

@@ -44,6 +44,7 @@ from ..optim import pose_opt
 from ..parallel import dist_reloc
 from ..parallel import mesh as pmesh
 from ..slammap import mapstate as ms
+from ..utils import metrics
 from ..vocab import database, vocabulary
 
 N_HYP = 300  # RANSAC hypotheses per candidate (`Tracking.cc:1653`)
@@ -266,6 +267,7 @@ class Relocalizer:
         return RelocBatch(n, n_ransac, n_first, take1, take2, pose, matched,
                           torch.where(ok_all, n_opt, zeros), steps)
 
+    @metrics.traced("reloc.relocalize")
     def relocalize(self, state: ms.MapState, frame, frame_id: int):
         """Returns (pose (4,4), matched_pt (N,) i32, n_inliers) of the best
         candidate with >= 50 inliers after the ladder, or None."""

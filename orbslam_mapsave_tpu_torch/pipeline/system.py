@@ -31,6 +31,7 @@ from ..io import mapio
 from ..io import trajectory as traj_io
 from ..ops import orb
 from ..slammap import mapstate as ms
+from ..utils import metrics
 from . import frame as frame_mod
 from . import fused_step, local_mapping, loop_closing, relocalization, tracking
 
@@ -135,8 +136,9 @@ class SLAMSystem:
         """Track one RGB-D frame; returns its Tcw (4,4) numpy pose."""
         if self.sensor != Sensor.RGBD:
             raise ValueError(f"track_rgbd on a {self.sensor.name} system")
-        pose = self.tracker.track_rgbd(image, depth, timestamp)
-        self._run_backends()
+        with metrics.span("system.frame", frame=True):
+            pose = self.tracker.track_rgbd(image, depth, timestamp)
+            self._run_backends()
         return pose
 
     def track_stereo(self, image_left, image_right, timestamp: float):
@@ -144,8 +146,9 @@ class SLAMSystem:
         (4,4) numpy pose."""
         if self.sensor != Sensor.STEREO:
             raise ValueError(f"track_stereo on a {self.sensor.name} system")
-        pose = self.tracker.track_stereo(image_left, image_right, timestamp)
-        self._run_backends()
+        with metrics.span("system.frame", frame=True):
+            pose = self.tracker.track_stereo(image_left, image_right, timestamp)
+            self._run_backends()
         return pose
 
     def track_monocular(self, image, timestamp: float):
@@ -153,10 +156,12 @@ class SLAMSystem:
         until the two-view bootstrap succeeds)."""
         if self.sensor != Sensor.MONOCULAR:
             raise ValueError(f"track_monocular on a {self.sensor.name} system")
-        pose = self.tracker.track_monocular(image, timestamp)
-        self._run_backends()
+        with metrics.span("system.frame", frame=True):
+            pose = self.tracker.track_monocular(image, timestamp)
+            self._run_backends()
         return pose
 
+    @metrics.traced("system.backends")
     def _run_backends(self):
         """After each frame: reset when lost right after initialization,
         pump the global-BA job, run a mapping pass and loop closing on each
@@ -197,31 +202,33 @@ class SLAMSystem:
         if trk.ctrl is None:
             return
         cfg = self.cfg
-        did = False
-        if trk.n_pt_watermark > 0.9 * cfg.max_points:
-            self.flush_gba()
-            self.map, new_pt = ms.compact_points(self.map)
-            lm_ = trk.ctrl.last_matched
-            trk.ctrl = trk.ctrl._replace(
-                last_matched=torch.where(lm_ >= 0, new_pt[torch.clamp(lm_, min=0).long()],
-                                         torch.full_like(lm_, -1)),
-                recent_start=int(self.map.n_pt))
-            if self.mapper is not None:
-                self.mapper.recent_start = int(self.map.n_pt)
-            did = True
-        if trk.n_kf_watermark > 0.9 * cfg.max_keyframes:
-            self.flush_gba()
-            self.map, new_kf = ms.compact_keyframes(self.map)
-            trk.ctrl = trk.ctrl._replace(
-                ref_kf=max(int(new_kf[max(trk.ctrl.ref_kf, 0)]), 0))
-            trk.ref_kf = max(int(new_kf[trk.ref_kf]), 0) if trk.ref_kf >= 0 else 0
-            if self.loop_closer is not None:
-                self.loop_closer.remap_keyframes(new_kf.cpu().numpy())
-            did = True
-        if did:
-            trk.n_pt_watermark = 0
-            trk.n_kf_watermark = 0
+        points = trk.n_pt_watermark > 0.9 * cfg.max_points
+        keyframes = trk.n_kf_watermark > 0.9 * cfg.max_keyframes
+        if not (points or keyframes):
+            return
+        with metrics.span("system.compact"):
+            if points:
+                self.flush_gba()
+                self.map, new_pt = ms.compact_points(self.map)
+                lm_ = trk.ctrl.last_matched
+                trk.ctrl = trk.ctrl._replace(
+                    last_matched=torch.where(lm_ >= 0, new_pt[torch.clamp(lm_, min=0).long()],
+                                             torch.full_like(lm_, -1)),
+                    recent_start=int(self.map.n_pt))
+                if self.mapper is not None:
+                    self.mapper.recent_start = int(self.map.n_pt)
+            if keyframes:
+                self.flush_gba()
+                self.map, new_kf = ms.compact_keyframes(self.map)
+                trk.ctrl = trk.ctrl._replace(
+                    ref_kf=max(int(new_kf[max(trk.ctrl.ref_kf, 0)]), 0))
+                trk.ref_kf = max(int(new_kf[trk.ref_kf]), 0) if trk.ref_kf >= 0 else 0
+                if self.loop_closer is not None:
+                    self.loop_closer.remap_keyframes(new_kf.cpu().numpy())
+        trk.n_pt_watermark = 0
+        trk.n_kf_watermark = 0
 
+    @metrics.traced("system.reset")
     def reset(self):
         """`System::Reset` / `Tracking::Reset` (`src/Tracking.cc:1777-1819`)."""
         cfg = self.cfg
@@ -246,10 +253,11 @@ class SLAMSystem:
         trk._init_frame = None
         if self.mapper is not None:
             self.mapper.recent_start = None
-            self.mapper.ba_lane_log.clear()
+            self.mapper.ba_lanes_dropped = self.mapper.ba_escalations = 0
         if self.loop_closer is not None:
             self.loop_closer.reset()
 
+    @metrics.traced("system.flush_gba")
     def flush_gba(self):
         """Drain pending loop-closing work into the map: the detect -> Sim3
         chain (each stage is read one keyframe late, so two polls), then

@@ -21,6 +21,7 @@ from ..geometry import projection, se3
 from ..ops import hamming, initializer, matching
 from ..optim import global_ba, pose_opt
 from ..slammap import mapstate as ms
+from ..utils import metrics
 from . import frame as frame_mod
 
 NO_IMAGES_YET = 0
@@ -235,7 +236,8 @@ def make_tracking_kernels(cam: projection.Camera, builder: frame_mod.FrameBuilde
             n_levels=n_levels, scale_factor=scale_factor)
         merged = torch.where((new_matches >= 0) & (matched_pt < 0),
                              local_idx[_clip0(new_matches)], matched_pt)
-        pose2, merged, n_inl = optimize_pose(state, frame, pose, merged)
+        with metrics.span("track.pose_lm"):
+            pose2, merged, n_inl = optimize_pose(state, frame, pose, merged)
         # visibility bookkeeping (MapPoint::IncreaseVisible/Found): as in the
         # JAX version, rows that are not visible add their 1 to slot P-1
         vis_idx = torch.where(lp_valid & visible, lp, torch.full_like(lp, P - 1))
@@ -440,6 +442,7 @@ class Tracker:
             self.ts_epoch = float(timestamp)
         return float(timestamp) - self.ts_epoch
 
+    @metrics.traced("track.record")
     def _record(self, out, t: float):
         """Host view of one step's outcome (the JAX version's batched
         `flush`, one frame at a time)."""
@@ -475,6 +478,7 @@ class Tracker:
             if self.disallow_kf:
                 self.ctrl = self.ctrl._replace(allow_kf=False)
 
+    @metrics.traced("reloc.host")
     def _host_relocalize(self, fr: frame_mod.FrameData):
         """`Tracking::Relocalization` (`src/Tracking.cc:1601-1775`) on this
         frame, while LOST or in map-less odometry (`tracking.py:578-612`):
@@ -521,7 +525,8 @@ class Tracker:
         """The per-frame step on a frame with depth (RGB-D or stereo)."""
         self.last_frame = fr
         self._ensure_ctrl(fr)
-        self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
+        with metrics.span("track.step"):
+            self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
         self._record(out, float(timestamp))
         self.frame_id += 1
         # relocalization retries EVERY frame while lost or in map-less VO
@@ -543,7 +548,8 @@ class Tracker:
             self._mono_initialize(fr, float(timestamp))
             self.frame_id += 1
             return self._trajectory[-1][1]
-        self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
+        with metrics.span("track.step"):
+            self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
         self._record(out, float(timestamp))
         self.frame_id += 1
         if self.state == LOST or self.mb_vo:

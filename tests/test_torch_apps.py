@@ -222,21 +222,22 @@ def test_native_loader_builds_from_source(synthetic_tum, monkeypatch):
 
 
 def test_metrics(tmp_path):
-    m = metrics.Metrics()
-    m.count("frames")
-    m.count("frames", 2)
-    m.gauge("fps", 31)
-    x = torch.ones(3)
-    for _ in range(3):
-        with m.stage("track", sync=x):
-            x = x + 1
-    with m.stage("empty", sync=[x, None]):
-        pass
-    s = m.summary()
-    assert s["counters"] == {"frames": 3} and s["gauges"] == {"fps": 31.0}
-    assert s["stages"]["track"]["n"] == 3 and s["stages"]["track"]["total_ms"] >= 0
-    m.dump(tmp_path / "m.json")
-    assert "median_ms" in (tmp_path / "m.json").read_text()
-    with metrics.profiler_trace(tmp_path / "trace"):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    metrics.reset()
+    metrics.enable()
+    try:
+        metrics.count("frames")
+        metrics.count("frames", 2)
+        x = torch.ones(3)
+        for _ in range(3):
+            with metrics.span("track", frame=True):
+                x = x + 1
+        s = metrics.summary()
+        assert s["counters"] == {"frames": 3} and s["frames"] == 3
+        assert s["spans"]["track"]["calls"] == 3 and s["spans"]["track"]["total_ms"] >= 0
+        metrics.dump(tmp_path / "m.json")
+        assert "self_ms" in (tmp_path / "m.json").read_text()
+        metrics.export_chrome(tmp_path / "spans.json")
+        assert (tmp_path / "spans.json").stat().st_size > 0
+    finally:
+        metrics.disable()
+        metrics.reset()
