@@ -27,12 +27,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import metrics
+from ..utils import metrics, staging
 from .orb_pattern import BIT_PATTERN_31
 
 HALF_PATCH = 15  # ORBextractor.cc:73
@@ -195,6 +196,12 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def resize_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`resize_matrix` on `device`, copied there once."""
+    return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """(out,) int64 source rows of `jax.image.resize(..., method="nearest")`:
     floor((i + 0.5) * in / out) at half-pixel centres, with the float32
@@ -207,14 +214,40 @@ def nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.floor((np.arange(out_size, dtype=f32) + f32(0.5)) * ratio).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def nearest_index_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`nearest_index` on `device`, copied there once."""
+    return torch.from_numpy(nearest_index(in_size, out_size)).to(device)
+
+
+class AngleBriefTables(NamedTuple):
+    ic_du: torch.Tensor  # (31,31) f32 column-moment weights of the circular patch
+    ic_dv: torch.Tensor  # (31,31) f32 row-moment weights
+    px: torch.Tensor  # (512,) f32 BRIEF x offsets: the pattern's first points, then its second
+    py: torch.Tensor  # (512,) f32 BRIEF y offsets
+    bit_weights: torch.Tensor  # (8,) i32 1, 2, ..., 128: bits packed LSB-first
+
+
+@functools.lru_cache(maxsize=None)
+def angle_brief_tables(device: torch.device) -> AngleBriefTables:
+    """The IC moments, the BRIEF pattern and the bit weights on `device`,
+    copied there once."""
+    pat = np.asarray(BIT_PATTERN_31, np.float32)
+    return AngleBriefTables(
+        *(torch.from_numpy(a).to(device) for a in (
+            _IC_DU, _IC_DV, np.concatenate([pat[:, 0], pat[:, 2]]),
+            np.concatenate([pat[:, 1], pat[:, 3]]),
+            np.array([1, 2, 4, 8, 16, 32, 64, 128], np.int32))))
+
+
 def resize_mask_nearest(mask: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """The (H,W) mask sampled at a level's (height, width) as
     `jax.image.resize(mask, ..., method="nearest")` samples it."""
     h, w = mask.shape
     if (h, w) == (height, width):
         return mask
-    ys = torch.from_numpy(nearest_index(h, height)).to(mask.device)
-    xs = torch.from_numpy(nearest_index(w, width)).to(mask.device)
+    ys = nearest_index_on(h, height, mask.device)
+    xs = nearest_index_on(w, width, mask.device)
     return mask[ys[:, None], xs[None, :]]
 
 
@@ -231,8 +264,8 @@ def build_pyramid(spec: ORBSpec, image: torch.Tensor) -> list[torch.Tensor]:
     prev_h, prev_w = spec.height, spec.width
     for lvl, ls in enumerate(spec.levels):
         if lvl > 0:
-            R_h = torch.from_numpy(resize_matrix(prev_h, ls.height)).to(cur.device)
-            R_w = torch.from_numpy(resize_matrix(prev_w, ls.width)).to(cur.device)
+            R_h = resize_matrix_on(prev_h, ls.height, cur.device)
+            R_w = resize_matrix_on(prev_w, ls.width, cur.device)
             cur = torch.round(R_h @ cur @ R_w.T)
         levels.append(reflect101_pad(cur, EDGE))
         prev_h, prev_w = ls.height, ls.width
@@ -345,10 +378,9 @@ def ic_angles_from_patches(patches49: torch.Tensor) -> torch.Tensor:
     sums below 2^24, exact in f32 in any order."""
     r = DESC_PAD + 3 - HALF_PATCH  # 9
     inner = patches49[:, r:r + PATCH_SIZE, r:r + PATCH_SIZE]
-    du = torch.from_numpy(_IC_DU).to(inner.device)
-    dv = torch.from_numpy(_IC_DV).to(inner.device)
-    m10 = torch.sum(inner * du, dim=(1, 2))
-    m01 = torch.sum(inner * dv, dim=(1, 2))
+    t = angle_brief_tables(inner.device)
+    m10 = torch.sum(inner * t.ic_du, dim=(1, 2))
+    m01 = torch.sum(inner * t.ic_dv, dim=(1, 2))
     ang = torch.atan2(m01, m10) * (180.0 / math.pi)
     return torch.where(ang < 0, ang + 360.0, ang)
 
@@ -364,23 +396,21 @@ def brief_from_patches(patches43: torch.Tensor, angles_deg: torch.Tensor
     rad = angles_deg * (math.pi / 180.0)
     a = torch.cos(rad)
     b = torch.sin(rad)
-    pat = torch.from_numpy(np.asarray(BIT_PATTERN_31, np.float32)).to(dev)
-    px = torch.cat([pat[:, 0], pat[:, 2]])  # (512,)
-    py = torch.cat([pat[:, 1], pat[:, 3]])
+    t = angle_brief_tables(dev)
+    px, py = t.px, t.py
     col_off = torch.round(px[None, :] * a[:, None] - py[None, :] * b[:, None]).long()
     row_off = torch.round(px[None, :] * b[:, None] + py[None, :] * a[:, None]).long()
     p_int = torch.round(patches43)
     ci = torch.arange(c, device=dev)[:, None]
     vals = p_int[ci, row_off + DESC_PAD, col_off + DESC_PAD]  # (C,512)
     bits = (vals[:, :256] < vals[:, 256:]).to(torch.int32)
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
-                           device=dev)
-    return torch.sum(bits.reshape(c, 32, 8) * weights, dim=-1).to(torch.uint8)
+    return torch.sum(bits.reshape(c, 32, 8) * t.bit_weights, dim=-1).to(torch.uint8)
 
 
-@metrics.traced("orb.extract")
-def extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
-    """Full ORB extraction on one grayscale image (H,W) float32 [0,255].
+def extract(spec: ORBSpec, image, mask=None) -> dict:
+    """Full ORB extraction on one grayscale image (H,W) in [0,255], a tensor
+    of any numeric dtype, by the `Extractor` kept for (spec, the image's
+    device): on a CUDA tensor one graph replay.
 
     `mask` (H,W): zero/False pixels are excluded, the fork's human-mask
     hook (`src/ORBextractor.cc:1048-1053`, `src/Tracking.cc:373-384`). As in
@@ -391,14 +421,100 @@ def extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None = None
     Returns a fixed-capacity keypoint dict: xy (M,2) f32 level-0 pixel
     coords, response (M,), angle_deg (M,), octave (M,) i32, size (M,),
     desc (M,32) u8, valid (M,) bool — M = spec.max_kp."""
-    if tuple(image.shape) != (spec.height, spec.width):
-        raise ValueError(
-            f"image shape {tuple(image.shape)} != ORBSpec ({spec.height}, "
-            f"{spec.width}) — Camera.width/height in the settings yaml must "
-            "match the input")
+    return _extractor(spec, torch.as_tensor(image).device)(image, mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _extractor(spec: ORBSpec, device: torch.device) -> "Extractor":
+    return Extractor(spec, device)
+
+
+class Extractor:
+    """ORB extraction (`extract`) for one `ORBSpec` on one device.
+
+    On the CPU a call runs the eager body, `_extract`. On a CUDA device it
+    is one `torch.cuda.CUDAGraph` replay of that body: the body is ~1,000
+    small launches at static shapes, which take the host far longer to
+    launch than the card takes to run. A graph is captured for each input
+    kind a call shows (the image's dtype, whether a mask is given) at the
+    first call of that kind, after one eager warm-up that puts the constant
+    tables on the device (a capture may not copy from the host). A host
+    image and mask reach the graph's static inputs through pinned staging
+    buffers (`utils/staging.py`), a device one by a device-to-device copy;
+    the image is converted to float32 inside the graph. The outputs are
+    cloned after each replay, so a result stays valid after later calls. A
+    failed capture raises: there is no eager fallback on the card.
+    """
+
+    def __init__(self, spec: ORBSpec, device):
+        self.spec = spec
+        self.device = torch.device(device)
+        self._graphs: dict[tuple, _Graph] = {}  # (image dtype, masked) -> graph
+        self._staging = staging.Staging(self.device)
+
+    @metrics.traced("orb.extract")
+    def __call__(self, image, mask=None) -> dict:
+        spec = self.spec
+        image = torch.as_tensor(image)
+        if tuple(image.shape) != (spec.height, spec.width):
+            raise ValueError(
+                f"image shape {tuple(image.shape)} != ORBSpec ({spec.height}, "
+                f"{spec.width}) — Camera.width/height in the settings yaml must "
+                "match the input")
+        if self.device.type != "cuda":
+            if mask is not None:
+                mask = torch.as_tensor(mask).to(self.device, torch.float32)
+            return _extract(spec, image.to(self.device, torch.float32), mask)
+        key = (image.dtype, mask is not None)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _Graph(spec, self.device, *key)
+        self._staging("image", image, out=graph.image)
+        if mask is not None:
+            self._staging("mask", mask, out=graph.mask)
+        return graph.run()
+
+
+class _Graph:
+    """One captured extraction: its static inputs, the graph and the
+    graph's static outputs."""
+
+    def __init__(self, spec: ORBSpec, device: torch.device, dtype: torch.dtype,
+                 masked: bool):
+        self.spec = spec
+        shape = (spec.height, spec.width)
+        self.image = torch.empty(shape, dtype=dtype, device=device)
+        self.mask = torch.empty(shape, dtype=torch.float32, device=device) if masked else None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: dict = {}
+
+    def _body(self) -> dict:
+        return _extract(self.spec, self.image.to(torch.float32), self.mask)
+
+    def _capture(self) -> None:
+        dev = self.image.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # the warm-up, on the staged input
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._body()
+        self.graph = graph
+        metrics.count("orb.graph_captures")
+
+    def run(self) -> dict:
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        metrics.count("orb.graph_replays")
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def _extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None) -> dict:
+    """`extract`'s eager body on a float32 image and mask on one device."""
     dev = image.device
-    if mask is not None:
-        mask = torch.as_tensor(mask).to(dev, torch.float32)
     with metrics.span("orb.pyramid"):
         pyramid = build_pyramid(spec, image)
     all_xy, all_resp, all_ang, all_oct, all_desc = [], [], [], [], []

@@ -17,7 +17,7 @@ import torch
 
 from ..geometry import projection
 from ..ops import hamming, orb, stereo
-from ..utils import metrics
+from ..utils import metrics, staging
 
 
 class FrameData(NamedTuple):
@@ -49,36 +49,43 @@ class FrameBuilder:
         self.scale_factors_t = torch.from_numpy(self.scale_factors).to(self.device)
         self.inv_level_sigma2_t = torch.from_numpy(self.inv_level_sigma2).to(self.device)
         self.bounds_t = torch.from_numpy(self.bounds).to(self.device)
+        # ORB (a CUDA graph replay on the card) and the depth's and the
+        # stereo images' pinned staging
+        self.orb = orb.Extractor(spec, self.device)
+        self.staging = staging.Staging(self.device)
+
+    def _timestamp(self, timestamp: float) -> torch.Tensor:
+        return torch.full((), timestamp, dtype=torch.float32, device=self.device)
 
     @metrics.traced("build.frame")
     def build(self, image, timestamp: float, depth=None, mask=None) -> FrameData:
         """Frame from an image (H,W) and, for RGB-D, a depth map (H,W) in
         meters, in any numeric dtype (u8 image and f16 depth are what a
-        sensor delivers); all compute runs in float32 on `self.device`.
+        sensor delivers), on the host or on `self.device`: they reach the
+        card at their own widths and all compute runs in float32 there.
         Without depth (monocular, `Frame.cc:160-215`) every feature has
         ur = depth = -1. `mask` (H,W), optional: the human mask, zero where
         no keypoint may be detected (`orb.extract`)."""
         cam = self.cam
-        image = torch.as_tensor(image).to(self.device, torch.float32)
-        kp = orb.extract(self.spec, image, mask)
+        kp = self.orb(image, mask)
         und = projection.undistort_points(cam, kp["xy"])
         none = torch.full_like(und[:, 0], -1.0)
         if depth is None:
             ur = d = none
         else:
             with metrics.span("build.depth"):
-                depth = torch.as_tensor(depth).to(self.device, torch.float32)
+                depth = self.staging("depth", depth)
                 # sample depth at the rounded raw keypoint coords, Frame.cc:765-768
                 xi = torch.clamp(torch.round(kp["xy"][:, 0]).long(), 0, depth.shape[1] - 1)
                 yi = torch.clamp(torch.round(kp["xy"][:, 1]).long(), 0, depth.shape[0] - 1)
-                d = depth[yi, xi]
+                d = depth[yi, xi].to(torch.float32)
                 has_d = d > 0
                 ur = torch.where(has_d,
                                  und[:, 0] - cam.bf / torch.where(has_d, d, torch.ones_like(d)),
                                  none)
                 d = torch.where(has_d, d, none)
         return FrameData(
-            timestamp=torch.tensor(timestamp, dtype=torch.float32, device=self.device),
+            timestamp=self._timestamp(timestamp),
             kp_xy_raw=kp["xy"],
             kp_xy=und,
             kp_ur=ur,
@@ -98,9 +105,10 @@ class FrameBuilder:
         keypoint's right-u and depth (-1 where unmatched), then the left
         keypoints undistorted."""
         cam = self.cam
-        left = torch.as_tensor(image_left).to(self.device, torch.float32)
-        right = torch.as_tensor(image_right).to(self.device, torch.float32)
-        kl, kr = orb.extract(self.spec, left), orb.extract(self.spec, right)
+        left = self.staging("left", image_left)
+        right = self.staging("right", image_right)
+        kl, kr = self.orb(left), self.orb(right)
+        left, right = left.to(torch.float32), right.to(torch.float32)
         bits_l = hamming.unpack_bits(kl["desc"])
         with metrics.span("build.stereo"):
             ur, d = stereo.compute_stereo_matches(
@@ -108,7 +116,7 @@ class FrameBuilder:
                 kr["xy"], kr["octave"], hamming.unpack_bits(kr["desc"]), kr["valid"],
                 bf=float(cam.bf), fx=float(cam.fx))
         return FrameData(
-            timestamp=torch.tensor(timestamp, dtype=torch.float32, device=self.device),
+            timestamp=self._timestamp(timestamp),
             kp_xy_raw=kl["xy"],
             kp_xy=projection.undistort_points(cam, kl["xy"]),
             kp_ur=ur,

@@ -29,6 +29,7 @@ import torch
 from orbslam_mapsave_tpu.ops import orb as jorb
 from orbslam_mapsave_tpu_torch.io import synthetic
 from orbslam_mapsave_tpu_torch.ops import orb as torb
+from orbslam_mapsave_tpu_torch.ops.orb_pattern import BIT_PATTERN_31
 
 torch.set_num_threads(2)
 SIZES = [(320, 240, 600), (640, 480, 2000)]
@@ -264,3 +265,59 @@ def test_masked_extract_keeps_out_of_the_mask(case, masked):
     open_half = case["kt"]["valid"] & (case["kt"]["xy"][:, 0] < W // 2 - 3)
     assert v.sum() > open_half.sum()
     assert (kt["xy"][v, 0] < W // 2 + 2).all()
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (480, 640), (240, 320)])
+def test_device_tables_equal_the_per_call_tables(hw):
+    """The tables ORB keeps on its device equal what each call used to copy
+    there: the resize matrices at every level pair, the mask's nearest rows
+    at every level, the IC moments, the BRIEF pattern and the bit weights;
+    each is built once per device."""
+    H, W = hw
+    cpu = torch.device("cpu")
+    spec = torb.ORBSpec.create(H, W, n_features=2000)
+    prev_h, prev_w = H, W
+    for ls in spec.levels[1:]:
+        for n_in, n_out in ((prev_h, ls.height), (prev_w, ls.width)):
+            got = torb.resize_matrix_on(n_in, n_out, cpu)
+            assert torch.equal(got, torch.from_numpy(torb.resize_matrix(n_in, n_out)))
+            assert torb.resize_matrix_on(n_in, n_out, cpu) is got
+        prev_h, prev_w = ls.height, ls.width
+    for ls in spec.levels[1:]:
+        for n_in, n_out in ((H, ls.height), (W, ls.width)):
+            got = torb.nearest_index_on(n_in, n_out, cpu)
+            assert torch.equal(got, torch.from_numpy(torb.nearest_index(n_in, n_out)))
+    t = torb.angle_brief_tables(cpu)
+    assert torb.angle_brief_tables(cpu) is t
+    assert torch.equal(t.ic_du, torch.from_numpy(torb._IC_DU))
+    assert torch.equal(t.ic_dv, torch.from_numpy(torb._IC_DV))
+    pat = torch.from_numpy(np.asarray(BIT_PATTERN_31, np.float32))
+    assert torch.equal(t.px, torch.cat([pat[:, 0], pat[:, 2]]))
+    assert torch.equal(t.py, torch.cat([pat[:, 1], pat[:, 3]]))
+    assert torch.equal(t.bit_weights, torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
+                                                   dtype=torch.int32))
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "mono", "masked"])
+def test_build_from_sensor_dtypes_equals_build_from_f32(sensor):
+    """FrameBuilder.build from the sensor's u8 image and f16 depth equals the
+    build from their float32 casts, field for field."""
+    from orbslam_mapsave_tpu_torch.geometry import projection
+    from orbslam_mapsave_tpu_torch.pipeline import frame
+
+    W, H = 320, 240
+    img = _image(W, H).astype(np.uint8)
+    depth = np.linspace(0.5, 4.0, H * W, dtype=np.float32).reshape(H, W).astype(np.float16)
+    depth[::7, ::5] = 0.0  # holes
+    mask = None
+    if sensor == "masked":
+        mask = np.ones((H, W), np.float32)
+        mask[60:200, 100:180] = 0.0
+    cam = projection.Camera.create(0.8 * W, 0.8 * W, W / 2, H / 2, bf=0.8 * W * 0.08,
+                                   width=W, height=H)
+    builder = frame.FrameBuilder(cam, _specs(W, H, 600)[1], "cpu")
+    frames = [builder.build(im, 0.25, None if sensor == "mono" else d, mask)
+              for im, d in ((img, depth), (img.astype(np.float32), depth.astype(np.float32)))]
+    for name, a, b in zip(frame.FrameData._fields, *frames):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(frames[0].valid.sum()) > 100
