@@ -1008,7 +1008,7 @@ def _map_step_stages(mapper, captured) -> dict:
                (lm.ms, "update_connections", "covisibility updates"),
                (mapper, "_ba", "local BA"),
                (lm, "keyframe_culling", "keyframe culling")]
-    step_fn = local_ba._build_and_solve
+    step_fn = local_ba._LMGraphs._step  # one call per LM iteration (a graph replay)
 
     def counted(*a, **k):
         iters[0] += 1
@@ -1016,7 +1016,7 @@ def _map_step_stages(mapper, captured) -> dict:
 
     patches = [(obj, name, _synced(getattr(obj, name), label, timed))
                for obj, name, label in targets]
-    with _patched(patches + [(local_ba, "_build_and_solve", counted)]):
+    with _patched(patches + [(local_ba._LMGraphs, "_step", counted)]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mapper._map_step(*captured)

@@ -20,7 +20,10 @@ runs on its point shards.
   an abort flag that skips the second phase (`src/Optimizer.cc:660-717`).
 
 The JAX version's `lax.while_loop` / `lax.cond` become Python loops and
-`if`s on values read from the device: one read per LM iteration.
+`if`s on values read from the device: one read per LM iteration. On a
+CUDA device each LM iteration (`_lm_step`) is one CUDA graph replay over
+static buffers (`_LMGraphs`), captured once per camera, device, problem
+shape (C, L, O) and robust flag; the CPU runs the same body eagerly.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import projection, se3
+from ..utils import metrics
 from . import global_ba, lm
 
 
@@ -218,28 +222,135 @@ def _build_and_solve(cam, poses, pts, prob, oh, active, robust: bool, lam):
     return dx_cam, torch.where(keep, dx_pt, torch.zeros_like(dx_pt))
 
 
+def _lm_step(cam, prob, oh, active, robust: bool, free, rtol: float,
+             poses, pts, lam, cur, small):
+    """One damped LM iteration: (poses, pts, lam, cur, small) -> the next.
+    A rejected step keeps the state and raises lam; `small` counts the
+    consecutive steps that changed the cost by < rtol * cost."""
+    dxc, dxp = _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam)
+    new_poses = se3.se3_exp(torch.where(free, dxc, torch.zeros_like(dxc))) @ poses
+    new_pts = pts + dxp
+    new = _cost_at(cam, new_poses, new_pts, prob, oh, active, robust)
+    accept = new < cur
+    small = torch.where((cur - new) < rtol * cur, small + 1, torch.zeros_like(small))
+    poses = torch.where(accept, new_poses, poses)
+    pts = torch.where(accept, new_pts, pts)
+    cur = torch.where(accept, new, cur)
+    lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
+    return poses, pts, lam, cur, small
+
+
+class _LMGraphs:
+    """`_lm_step` over static buffers for one camera, device and problem
+    shape: the problem, its one-hot, the active lanes and the free cameras
+    as inputs, and the iteration state (poses, pts, lam, cur, small),
+    which each step updates in place. On a CUDA device each step is one
+    replay of a graph captured per (robust, rtol) at its first use, after
+    one eager warm-up on a side stream; elsewhere the body runs eagerly."""
+
+    def __init__(self, cam: projection.Camera, prob: BAProblem):
+        self.cam = cam
+        self.prob = BAProblem(*[torch.empty_like(x) for x in prob])
+        (L, O), C = prob.obs_cam.shape, prob.cam_pose.shape[0]
+        x = prob.pt_pos
+        self.oh = x.new_empty((L, O, C))
+        self.active = torch.empty((L, O), dtype=torch.bool, device=x.device)
+        self.free = torch.empty((C, 1), dtype=torch.bool, device=x.device)
+        self.state = (x.new_empty((C, 4, 4)), x.new_empty((L, 3)), x.new_empty(()),
+                      x.new_empty(()), torch.empty((), dtype=torch.int32, device=x.device))
+        self.graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
+
+    def load(self, prob: BAProblem, oh: torch.Tensor) -> "_LMGraphs":
+        """Copy one problem and its one-hot into the static inputs."""
+        for dst, src in zip(self.prob, prob):
+            dst.copy_(src)
+        self.oh.copy_(oh)
+        self.free.copy_((prob.cam_valid & ~prob.cam_fixed)[:, None])
+        return self
+
+    def _body(self, robust: bool, rtol: float) -> None:
+        out = _lm_step(self.cam, self.prob, self.oh, self.active, robust, self.free, rtol,
+                       *self.state)
+        for dst, src in zip(self.state, out):
+            dst.copy_(src)
+
+    def _capture(self, robust: bool, rtol: float) -> torch.cuda.CUDAGraph:
+        dev = self.oh.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # the warm-up, which leaves the state as it is
+            _lm_step(self.cam, self.prob, self.oh, self.active, robust, self.free, rtol,
+                     *self.state)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body(robust, rtol)
+        metrics.count("mapping.ba_graph_captures")
+        return graph
+
+    def _step(self, robust: bool, rtol: float) -> None:
+        if self.oh.device.type != "cuda":
+            self._body(robust, rtol)
+            return
+        key = (robust, rtol)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = self._capture(robust, rtol)
+        graph.replay()
+        metrics.count("mapping.ba_graph_replays")
+
+    def run(self, poses, pts, lam, cur, small, active, robust: bool, n_iters: int,
+            rtol: float):
+        """`_run_phase`'s loop from the given state: up to n_iters steps,
+        one read of `small` after each. Returns the state's poses, pts and
+        cur, copied out of the buffers."""
+        self.active.copy_(active)
+        for dst, src in zip(self.state, (poses, pts, lam, cur, small)):
+            dst.copy_(src)
+        for _ in range(n_iters):
+            self._step(robust, rtol)
+            if int(self.state[4]) >= 2:
+                break
+        return tuple(self.state[i].clone() for i in (0, 1, 3))
+
+
+# (camera, device, dtype, C, L, O) -> the static buffers and graphs of that shape
+_GRAPHS: dict[tuple, _LMGraphs] = {}
+
+
+def _graphs_for(cam: projection.Camera, prob: BAProblem,
+                oh: torch.Tensor) -> _LMGraphs | None:
+    """On a CUDA device, the static buffers of prob's shape there, holding
+    prob; elsewhere None (the eager loop)."""
+    x = prob.pt_pos
+    if not x.is_cuda:
+        return None
+    key = (cam, x.device, x.dtype, prob.cam_pose.shape[0]) + tuple(prob.obs_cam.shape)
+    graphs = _GRAPHS.get(key)
+    if graphs is None:
+        graphs = _GRAPHS[key] = _LMGraphs(cam, prob)
+    return graphs.load(prob, oh)
+
+
 def _run_phase(cam, poses, pts, prob, oh, active, robust: bool, n_iters: int,
-               lam0: torch.Tensor, rtol: float = 1e-6):
+               lam0: torch.Tensor, rtol: float = 1e-6, graphs: _LMGraphs | None = None):
     """Up to n_iters damped LM steps, ending early once two consecutive
     steps each change the cost by < rtol * cost. As in the JAX version a
-    rejected step counts as a small gain (ROADMAP queue 3)."""
+    rejected step counts as a small gain (ROADMAP queue 3). With `graphs`
+    (holding this problem) the steps run there, on its static buffers."""
     free = (prob.cam_valid & ~prob.cam_fixed)[:, None]
     cur = _cost_at(cam, poses, pts, prob, oh, active, robust)
     lam = lam0
     small = torch.zeros((), dtype=torch.int32, device=pts.device)
-    for _ in range(n_iters):
-        dxc, dxp = _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam)
-        new_poses = se3.se3_exp(torch.where(free, dxc, torch.zeros_like(dxc))) @ poses
-        new_pts = pts + dxp
-        new = _cost_at(cam, new_poses, new_pts, prob, oh, active, robust)
-        accept = new < cur
-        small = torch.where((cur - new) < rtol * cur, small + 1, torch.zeros_like(small))
-        poses = torch.where(accept, new_poses, poses)
-        pts = torch.where(accept, new_pts, pts)
-        cur = torch.where(accept, new, cur)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
-        if int(small) >= 2:
-            break
+    if graphs is not None:
+        poses, pts, cur = graphs.run(poses, pts, lam, cur, small, active, robust, n_iters,
+                                     rtol)
+    else:
+        for _ in range(n_iters):
+            poses, pts, lam, cur, small = _lm_step(cam, prob, oh, active, robust, free, rtol,
+                                                   poses, pts, lam, cur, small)
+            if int(small) >= 2:
+                break
     # project the rotations back onto SO(3) (chained f32 products drift)
     return se3.orthonormalize(poses), pts, cur
 
@@ -257,14 +368,19 @@ def local_bundle_adjustment(cam: projection.Camera, prob: BAProblem,
     (`src/Optimizer.cc:660-717`); `abort` skips the second phase like
     `mbAbortBA` (`src/LocalMapping.cc:118`)."""
     oh = _onehot_cam(prob)
+    return _local_ba(cam, prob, oh, n_iters_a, n_iters_b, abort, _graphs_for(cam, prob, oh))
+
+
+def _local_ba(cam, prob, oh, n_iters_a: int, n_iters_b: int, abort: bool,
+              graphs: _LMGraphs | None) -> BAResult:
     struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
-    lam0 = torch.tensor(1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
+    lam0 = torch.full((), 1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
     poses, pts, _ = _run_phase(cam, prob.cam_pose, prob.pt_pos, prob, oh, struct,
-                               True, n_iters_a, lam0)
+                               True, n_iters_a, lam0, graphs=graphs)
     if not abort:
         active, _ = _inliers(cam, poses, pts, prob, oh, struct)
         poses, pts, _ = _run_phase(cam, poses, pts, prob, oh, active, False,
-                                   n_iters_b, lam0)
+                                   n_iters_b, lam0, graphs=graphs)
     inlier, chi2 = _inliers(cam, poses, pts, prob, oh, struct)
     total = torch.sum(torch.where(inlier, chi2, torch.zeros_like(chi2)))
     return BAResult(cam_pose=poses, pt_pos=pts, obs_inlier=inlier, chi2=total)
@@ -277,9 +393,9 @@ def global_bundle_adjustment(cam: projection.Camera, prob: BAProblem,
     the first camera fixed by the caller through cam_fixed."""
     oh = _onehot_cam(prob)
     struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
-    lam0 = torch.tensor(1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
+    lam0 = torch.full((), 1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
     poses, pts, _ = _run_phase(cam, prob.cam_pose, prob.pt_pos, prob, oh, struct, True,
-                               n_iters, lam0)
+                               n_iters, lam0, graphs=_graphs_for(cam, prob, oh))
     inlier, chi2 = _inliers(cam, poses, pts, prob, oh, struct)
     total = torch.sum(torch.where(inlier, chi2, torch.zeros_like(chi2)))
     return BAResult(cam_pose=poses, pt_pos=pts, obs_inlier=inlier, chi2=total)

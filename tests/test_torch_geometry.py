@@ -141,3 +141,21 @@ def test_quaternions_match_jax():
     assert np.abs(Rj - Rt).max() <= 1e-6
     back = tse3.quat_to_rot(tse3.rot_to_quat(torch.from_numpy(R))).numpy()
     assert np.abs(back - R).max() <= 1e-5
+
+
+@pytest.mark.parametrize("batch", [(), (5,), (2, 3)])
+def test_rt_to_mat_equals_the_host_scalar_construction(batch):
+    """`rt_to_mat` sets the homogeneous 1 with a device fill; the values are
+    those of the construction that wrote it as a host scalar, and the JAX
+    package's."""
+    rng = np.random.default_rng(7)
+    R = torch.from_numpy(rng.normal(size=batch + (3, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.normal(size=batch + (3,)).astype(np.float32))
+    bottom = torch.zeros(batch + (1, 4))
+    bottom[..., 0, 3] = 1.0
+    old = torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+    new = tse3.rt_to_mat(R, t)
+    assert new.shape == batch + (4, 4) and new.dtype == old.dtype
+    assert torch.equal(new, old)
+    np.testing.assert_array_equal(
+        np.asarray(jse3.rt_to_mat(jnp.asarray(R.numpy()), jnp.asarray(t.numpy()))), new.numpy())

@@ -179,6 +179,64 @@ def test_local_bundle_adjustment(case, abort):
     np.testing.assert_allclose(rt.cam_pose.numpy()[:2], pt.cam_pose.numpy()[:2], atol=1e-7)
 
 
+def _counting(monkeypatch):
+    """Counts the calls of `_lm_step`: the LM iterations run, on either path."""
+    calls = [0]
+    step = tba._lm_step
+
+    def counted(*a):
+        calls[0] += 1
+        return step(*a)
+
+    monkeypatch.setattr(tba, "_lm_step", counted)
+    return calls
+
+
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("case", list(CASES))
+def test_lm_step_on_static_buffers_equals_the_functional_loop(case, robust, monkeypatch):
+    """`_lm_step` run in place on `_LMGraphs`' static buffers, as a CUDA
+    graph replays it (here uncaptured), gives the functional loop's phase
+    bit for bit in as many iterations; what it returns is copied out of the
+    buffers, so it outlives the next problem loaded into them."""
+    _, _, cam, pt = _both(_problem(3, **CASES[case]))
+    oh = tba._onehot_cam(pt)
+    act = pt.obs_valid & (pt.obs_cam >= 0) & pt.pt_valid[:, None]
+    lam0 = torch.full((), 1e-4)
+    calls = _counting(monkeypatch)
+    want = tba._run_phase(cam, pt.cam_pose, pt.pt_pos, pt, oh, act, robust, 10, lam0)
+    n_eager, calls[0] = calls[0], 0
+    graphs = tba._LMGraphs(cam, pt).load(pt, oh)
+    got = tba._run_phase(cam, pt.cam_pose, pt.pt_pos, pt, oh, act, robust, 10, lam0,
+                         graphs=graphs)
+    assert calls[0] == n_eager >= 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    kept = [x.clone() for x in got]
+    _, _, _, p2 = _both(_problem(5, **CASES[case]))
+    oh2 = tba._onehot_cam(p2)
+    tba._run_phase(cam, p2.cam_pose, p2.pt_pos, p2, oh2, act, robust, 10, lam0,
+                   graphs=graphs.load(p2, oh2))
+    assert not torch.equal(graphs.state[1], kept[1])
+    for a, b in zip(got, kept):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("abort", [False, True])
+@pytest.mark.parametrize("case", list(CASES))
+def test_local_ba_on_static_buffers_equals_eager(case, abort):
+    """The whole schedule with both phases on one set of static buffers
+    (phase A's and B's steps share the problem) equals the eager one, every
+    field bit for bit."""
+    _, _, cam, pt = _both(_problem(3, **CASES[case]))
+    oh = tba._onehot_cam(pt)
+    want = tba._local_ba(cam, pt, oh, 5, 10, abort, None)
+    got = tba._local_ba(cam, pt, oh, 5, 10, abort, tba._LMGraphs(cam, pt).load(pt, oh))
+    for name, a, b in zip(tba.BAResult._fields, got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(want.cam_pose, tba.local_bundle_adjustment(cam, pt, abort=abort).cam_pose)
+
+
 def test_ba_reduces_error_and_abort_does_less():
     """Behaviour as `test_local_ba.py` checks it: the clean problem
     converges, and an aborted BA (phase A only) ends at a cost no lower
