@@ -995,11 +995,10 @@ def _essential_exit_vs_full(lc, state, kf: int, mkf: int, label: str) -> dict:
 def _map_step_stages(mapper, captured) -> dict:
     """Host-clock ms of each stage of one replayed mapping step (a device
     sync before and after each), and the LM iterations its BA ran."""
-    from orbslam_mapsave_tpu_torch.optim import local_ba
     from orbslam_mapsave_tpu_torch.pipeline import local_mapping as lm
+    from orbslam_mapsave_tpu_torch.utils import metrics
 
     timed: list = []
-    iters = [0]
     targets = [(lm, "recent_point_culling", "recent culling"),
                (mapper.tri, "batched", "triangulation"),
                (mapper.tri, "finalize_idx", "new-point descriptors + normals"),
@@ -1008,25 +1007,26 @@ def _map_step_stages(mapper, captured) -> dict:
                (lm.ms, "update_connections", "covisibility updates"),
                (mapper, "_ba", "local BA"),
                (lm, "keyframe_culling", "keyframe culling")]
-    step_fn = local_ba._LMGraphs._step  # one call per LM iteration (a graph replay)
-
-    def counted(*a, **k):
-        iters[0] += 1
-        return step_fn(*a, **k)
-
     patches = [(obj, name, _synced(getattr(obj, name), label, timed))
                for obj, name, label in targets]
-    with _patched(patches + [(local_ba._LMGraphs, "_step", counted)]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mapper._map_step(*captured)
-        torch.cuda.synchronize()
-        total = 1e3 * (time.perf_counter() - t0)
+    metrics.reset()
+    metrics.enable()  # one `mapping.ba_graph_replays` count per LM iteration
+    try:
+        with _patched(patches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mapper._map_step(*captured)
+            torch.cuda.synchronize()
+            total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        metrics.disable()
+    iters = metrics.summary()["counters"].get("mapping.ba_graph_replays", 0)
+    metrics.reset()
     ms_: dict = {}
     for label, t in timed:
         ms_[label] = ms_.get(label, 0.0) + t
     ms_["rest"] = total - sum(ms_.values())
-    return dict(total_ms=total, stages_ms=ms_, lm_iterations=iters[0])
+    return dict(total_ms=total, stages_ms=ms_, lm_iterations=iters)
 
 
 def phase_map_step(mapper, captured) -> dict:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import metrics, staging
+from ..utils import cudagraph, metrics, staging
 from .orb_pattern import BIT_PATTERN_31
 
 HALF_PATCH = 15  # ORBextractor.cc:73
@@ -432,18 +432,15 @@ def _extractor(spec: ORBSpec, device: torch.device) -> "Extractor":
 class Extractor:
     """ORB extraction (`extract`) for one `ORBSpec` on one device.
 
-    On the CPU a call runs the eager body, `_extract`. On a CUDA device it
-    is one `torch.cuda.CUDAGraph` replay of that body: the body is ~1,000
-    small launches at static shapes, which take the host far longer to
-    launch than the card takes to run. A graph is captured for each input
-    kind a call shows (the image's dtype, whether a mask is given) at the
-    first call of that kind, after one eager warm-up that puts the constant
-    tables on the device (a capture may not copy from the host). A host
-    image and mask reach the graph's static inputs through pinned staging
-    buffers (`utils/staging.py`), a device one by a device-to-device copy;
-    the image is converted to float32 inside the graph. The outputs are
-    cloned after each replay, so a result stays valid after later calls. A
-    failed capture raises: there is no eager fallback on the card.
+    A call stages the image (and mask) into the static inputs kept for its
+    input kind (the image's dtype, whether a mask is given), runs the eager
+    body `_extract` over them as one `cudagraph.Graph` and clones the
+    outputs, so a result stays valid after later calls. On a CUDA device
+    that is one graph replay of ~1,000 small launches; the warm-up before
+    the capture puts the constant tables on the device. A host image and
+    mask reach the static inputs through pinned staging buffers
+    (`utils/staging.py`), a device one by a device-to-device copy; the
+    image is converted to float32 inside the body.
     """
 
     def __init__(self, spec: ORBSpec, device):
@@ -461,10 +458,6 @@ class Extractor:
                 f"image shape {tuple(image.shape)} != ORBSpec ({spec.height}, "
                 f"{spec.width}) — Camera.width/height in the settings yaml must "
                 "match the input")
-        if self.device.type != "cuda":
-            if mask is not None:
-                mask = torch.as_tensor(mask).to(self.device, torch.float32)
-            return _extract(spec, image.to(self.device, torch.float32), mask)
         key = (image.dtype, mask is not None)
         graph = self._graphs.get(key)
         if graph is None:
@@ -472,44 +465,20 @@ class Extractor:
         self._staging("image", image, out=graph.image)
         if mask is not None:
             self._staging("mask", mask, out=graph.mask)
-        return graph.run()
+        return {k: v.clone() for k, v in graph.run().items()}
 
 
 class _Graph:
-    """One captured extraction: its static inputs, the graph and the
-    graph's static outputs."""
+    """One extraction's static inputs and its `cudagraph.Graph`."""
 
     def __init__(self, spec: ORBSpec, device: torch.device, dtype: torch.dtype,
                  masked: bool):
-        self.spec = spec
         shape = (spec.height, spec.width)
         self.image = torch.empty(shape, dtype=dtype, device=device)
         self.mask = torch.empty(shape, dtype=torch.float32, device=device) if masked else None
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.out: dict = {}
-
-    def _body(self) -> dict:
-        return _extract(self.spec, self.image.to(torch.float32), self.mask)
-
-    def _capture(self) -> None:
-        dev = self.image.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):  # the warm-up, on the staged input
-            self._body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self._body()
-        self.graph = graph
-        metrics.count("orb.graph_captures")
-
-    def run(self) -> dict:
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        metrics.count("orb.graph_replays")
-        return {k: v.clone() for k, v in self.out.items()}
+        self.run = cudagraph.Graph(
+            "orb.graph", self.image.device,
+            lambda: _extract(spec, self.image.to(torch.float32), self.mask))
 
 
 def _extract(spec: ORBSpec, image: torch.Tensor, mask: torch.Tensor | None) -> dict:

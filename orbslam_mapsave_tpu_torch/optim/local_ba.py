@@ -20,20 +20,21 @@ runs on its point shards.
   an abort flag that skips the second phase (`src/Optimizer.cc:660-717`).
 
 The JAX version's `lax.while_loop` / `lax.cond` become Python loops and
-`if`s on values read from the device: one read per LM iteration. On a
-CUDA device each LM iteration (`_lm_step`) is one CUDA graph replay over
-static buffers (`_LMGraphs`), captured once per camera, device, problem
-shape (C, L, O) and robust flag; the CPU runs the same body eagerly.
+`if`s on values read from the device: one read per LM iteration. Each LM
+iteration (`_lm_step`) runs over static buffers (`_LMGraphs`) kept per
+camera, device and problem shape (C, L, O), as one `cudagraph.Graph` per
+robust flag: on a CUDA device one graph replay.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import projection, se3
-from ..utils import metrics
+from ..utils import cudagraph
 from . import global_ba, lm
 
 
@@ -61,6 +62,9 @@ class BAResult(NamedTuple):
 # keeps such edges with huge residuals, so a divergent step must not look
 # like an improvement (see the JAX module).
 _BEHIND_PENALTY = 1e7
+# An LM phase ends after two consecutive steps that each change the cost
+# by less than this share of it.
+_RTOL = 1e-6
 
 
 def _onehot_cam(prob: BAProblem) -> torch.Tensor:
@@ -222,17 +226,16 @@ def _build_and_solve(cam, poses, pts, prob, oh, active, robust: bool, lam):
     return dx_cam, torch.where(keep, dx_pt, torch.zeros_like(dx_pt))
 
 
-def _lm_step(cam, prob, oh, active, robust: bool, free, rtol: float,
-             poses, pts, lam, cur, small):
+def _lm_step(cam, prob, oh, active, robust: bool, free, poses, pts, lam, cur, small):
     """One damped LM iteration: (poses, pts, lam, cur, small) -> the next.
     A rejected step keeps the state and raises lam; `small` counts the
-    consecutive steps that changed the cost by < rtol * cost."""
+    consecutive steps that changed the cost by < _RTOL * cost."""
     dxc, dxp = _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam)
     new_poses = se3.se3_exp(torch.where(free, dxc, torch.zeros_like(dxc))) @ poses
     new_pts = pts + dxp
     new = _cost_at(cam, new_poses, new_pts, prob, oh, active, robust)
     accept = new < cur
-    small = torch.where((cur - new) < rtol * cur, small + 1, torch.zeros_like(small))
+    small = torch.where((cur - new) < _RTOL * cur, small + 1, torch.zeros_like(small))
     poses = torch.where(accept, new_poses, poses)
     pts = torch.where(accept, new_pts, pts)
     cur = torch.where(accept, new, cur)
@@ -244,9 +247,8 @@ class _LMGraphs:
     """`_lm_step` over static buffers for one camera, device and problem
     shape: the problem, its one-hot, the active lanes and the free cameras
     as inputs, and the iteration state (poses, pts, lam, cur, small),
-    which each step updates in place. On a CUDA device each step is one
-    replay of a graph captured per (robust, rtol) at its first use, after
-    one eager warm-up on a side stream; elsewhere the body runs eagerly."""
+    which each step writes in place. `steps[robust]` is one step as a
+    `cudagraph.Graph` ("mapping.ba_graph")."""
 
     def __init__(self, cam: projection.Camera, prob: BAProblem):
         self.cam = cam
@@ -258,7 +260,14 @@ class _LMGraphs:
         self.free = torch.empty((C, 1), dtype=torch.bool, device=x.device)
         self.state = (x.new_empty((C, 4, 4)), x.new_empty((L, 3)), x.new_empty(()),
                       x.new_empty(()), torch.empty((), dtype=torch.int32, device=x.device))
-        self.graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
+        self.steps = {robust: cudagraph.Graph("mapping.ba_graph", x.device,
+                                              functools.partial(self._body, robust),
+                                              into=self.state)
+                      for robust in (True, False)}
+
+    def _body(self, robust: bool):
+        return _lm_step(self.cam, self.prob, self.oh, self.active, robust, self.free,
+                        *self.state)
 
     def load(self, prob: BAProblem, oh: torch.Tensor) -> "_LMGraphs":
         """Copy one problem and its one-hot into the static inputs."""
@@ -268,63 +277,14 @@ class _LMGraphs:
         self.free.copy_((prob.cam_valid & ~prob.cam_fixed)[:, None])
         return self
 
-    def _body(self, robust: bool, rtol: float) -> None:
-        out = _lm_step(self.cam, self.prob, self.oh, self.active, robust, self.free, rtol,
-                       *self.state)
-        for dst, src in zip(self.state, out):
-            dst.copy_(src)
-
-    def _capture(self, robust: bool, rtol: float) -> torch.cuda.CUDAGraph:
-        dev = self.oh.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):  # the warm-up, which leaves the state as it is
-            _lm_step(self.cam, self.prob, self.oh, self.active, robust, self.free, rtol,
-                     *self.state)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body(robust, rtol)
-        metrics.count("mapping.ba_graph_captures")
-        return graph
-
-    def _step(self, robust: bool, rtol: float) -> None:
-        if self.oh.device.type != "cuda":
-            self._body(robust, rtol)
-            return
-        key = (robust, rtol)
-        graph = self.graphs.get(key)
-        if graph is None:
-            graph = self.graphs[key] = self._capture(robust, rtol)
-        graph.replay()
-        metrics.count("mapping.ba_graph_replays")
-
-    def run(self, poses, pts, lam, cur, small, active, robust: bool, n_iters: int,
-            rtol: float):
-        """`_run_phase`'s loop from the given state: up to n_iters steps,
-        one read of `small` after each. Returns the state's poses, pts and
-        cur, copied out of the buffers."""
-        self.active.copy_(active)
-        for dst, src in zip(self.state, (poses, pts, lam, cur, small)):
-            dst.copy_(src)
-        for _ in range(n_iters):
-            self._step(robust, rtol)
-            if int(self.state[4]) >= 2:
-                break
-        return tuple(self.state[i].clone() for i in (0, 1, 3))
-
 
 # (camera, device, dtype, C, L, O) -> the static buffers and graphs of that shape
 _GRAPHS: dict[tuple, _LMGraphs] = {}
 
 
-def _graphs_for(cam: projection.Camera, prob: BAProblem,
-                oh: torch.Tensor) -> _LMGraphs | None:
-    """On a CUDA device, the static buffers of prob's shape there, holding
-    prob; elsewhere None (the eager loop)."""
+def _graphs_for(cam: projection.Camera, prob: BAProblem, oh: torch.Tensor) -> _LMGraphs:
+    """The static buffers of prob's shape on its device, holding prob."""
     x = prob.pt_pos
-    if not x.is_cuda:
-        return None
     key = (cam, x.device, x.dtype, prob.cam_pose.shape[0]) + tuple(prob.obs_cam.shape)
     graphs = _GRAPHS.get(key)
     if graphs is None:
@@ -332,25 +292,24 @@ def _graphs_for(cam: projection.Camera, prob: BAProblem,
     return graphs.load(prob, oh)
 
 
-def _run_phase(cam, poses, pts, prob, oh, active, robust: bool, n_iters: int,
-               lam0: torch.Tensor, rtol: float = 1e-6, graphs: _LMGraphs | None = None):
-    """Up to n_iters damped LM steps, ending early once two consecutive
-    steps each change the cost by < rtol * cost. As in the JAX version a
-    rejected step counts as a small gain (ROADMAP queue 3). With `graphs`
-    (holding this problem) the steps run there, on its static buffers."""
-    free = (prob.cam_valid & ~prob.cam_fixed)[:, None]
-    cur = _cost_at(cam, poses, pts, prob, oh, active, robust)
-    lam = lam0
+def _run_phase(static: _LMGraphs, poses, pts, active, robust: bool, n_iters: int,
+               lam0: torch.Tensor):
+    """Up to n_iters damped LM steps on the problem `static` holds, from
+    (poses, pts), ending early once two consecutive steps each change the
+    cost by < _RTOL * cost. As in the JAX version a rejected step counts as
+    a small gain (ROADMAP queue 3). Returns poses, pts and the cost, copied
+    out of the buffers."""
+    cur = _cost_at(static.cam, poses, pts, static.prob, static.oh, active, robust)
     small = torch.zeros((), dtype=torch.int32, device=pts.device)
-    if graphs is not None:
-        poses, pts, cur = graphs.run(poses, pts, lam, cur, small, active, robust, n_iters,
-                                     rtol)
-    else:
-        for _ in range(n_iters):
-            poses, pts, lam, cur, small = _lm_step(cam, prob, oh, active, robust, free, rtol,
-                                                   poses, pts, lam, cur, small)
-            if int(small) >= 2:
-                break
+    static.active.copy_(active)
+    for dst, src in zip(static.state, (poses, pts, lam0, cur, small)):
+        dst.copy_(src)
+    step = static.steps[robust]
+    for _ in range(n_iters):
+        step()
+        if int(static.state[4]) >= 2:
+            break
+    poses, pts, cur = (static.state[i].clone() for i in (0, 1, 3))
     # project the rotations back onto SO(3) (chained f32 products drift)
     return se3.orthonormalize(poses), pts, cur
 
@@ -368,19 +327,14 @@ def local_bundle_adjustment(cam: projection.Camera, prob: BAProblem,
     (`src/Optimizer.cc:660-717`); `abort` skips the second phase like
     `mbAbortBA` (`src/LocalMapping.cc:118`)."""
     oh = _onehot_cam(prob)
-    return _local_ba(cam, prob, oh, n_iters_a, n_iters_b, abort, _graphs_for(cam, prob, oh))
-
-
-def _local_ba(cam, prob, oh, n_iters_a: int, n_iters_b: int, abort: bool,
-              graphs: _LMGraphs | None) -> BAResult:
+    static = _graphs_for(cam, prob, oh)
     struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
     lam0 = torch.full((), 1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
-    poses, pts, _ = _run_phase(cam, prob.cam_pose, prob.pt_pos, prob, oh, struct,
-                               True, n_iters_a, lam0, graphs=graphs)
+    poses, pts, _ = _run_phase(static, prob.cam_pose, prob.pt_pos, struct, True, n_iters_a,
+                               lam0)
     if not abort:
         active, _ = _inliers(cam, poses, pts, prob, oh, struct)
-        poses, pts, _ = _run_phase(cam, poses, pts, prob, oh, active, False,
-                                   n_iters_b, lam0, graphs=graphs)
+        poses, pts, _ = _run_phase(static, poses, pts, active, False, n_iters_b, lam0)
     inlier, chi2 = _inliers(cam, poses, pts, prob, oh, struct)
     total = torch.sum(torch.where(inlier, chi2, torch.zeros_like(chi2)))
     return BAResult(cam_pose=poses, pt_pos=pts, obs_inlier=inlier, chi2=total)
@@ -394,8 +348,8 @@ def global_bundle_adjustment(cam: projection.Camera, prob: BAProblem,
     oh = _onehot_cam(prob)
     struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
     lam0 = torch.full((), 1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
-    poses, pts, _ = _run_phase(cam, prob.cam_pose, prob.pt_pos, prob, oh, struct, True,
-                               n_iters, lam0, graphs=_graphs_for(cam, prob, oh))
+    poses, pts, _ = _run_phase(_graphs_for(cam, prob, oh), prob.cam_pose, prob.pt_pos,
+                               struct, True, n_iters, lam0)
     inlier, chi2 = _inliers(cam, poses, pts, prob, oh, struct)
     total = torch.sum(torch.where(inlier, chi2, torch.zeros_like(chi2)))
     return BAResult(cam_pose=poses, pt_pos=pts, obs_inlier=inlier, chi2=total)

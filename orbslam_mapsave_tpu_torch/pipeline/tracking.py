@@ -522,7 +522,7 @@ class Tracker:
             timestamp)
 
     def _track(self, fr: frame_mod.FrameData, timestamp: float):
-        """The per-frame step on a frame with depth (RGB-D or stereo)."""
+        """The per-frame step: step, record, relocalize while lost."""
         self.last_frame = fr
         self._ensure_ctrl(fr)
         with metrics.span("track.step"):
@@ -548,13 +548,7 @@ class Tracker:
             self._mono_initialize(fr, float(timestamp))
             self.frame_id += 1
             return self._trajectory[-1][1]
-        with metrics.span("track.step"):
-            self.map, self.ctrl, out = self.step(self.map, self.ctrl, fr)
-        self._record(out, float(timestamp))
-        self.frame_id += 1
-        if self.state == LOST or self.mb_vo:
-            self._host_relocalize(fr)
-        return self._trajectory[-1][1]
+        return self._track(fr, timestamp)
 
     def _init_failed(self, t: float, drop: bool = False):
         if drop:

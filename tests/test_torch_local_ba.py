@@ -23,6 +23,7 @@ from orbslam_mapsave_tpu_torch.optim import lm as tlm
 from orbslam_mapsave_tpu_torch.optim import local_ba as tba
 from orbslam_mapsave_tpu_torch.pipeline import local_mapping as tlmap
 from orbslam_mapsave_tpu_torch.slammap import mapstate as tms
+from test_torch_local_ba_graph import eager_local_ba, eager_phase
 
 torch.set_num_threads(2)
 CAM_ARGS = (525.0, 525.0, 319.5, 239.5)
@@ -180,7 +181,7 @@ def test_local_bundle_adjustment(case, abort):
 
 
 def _counting(monkeypatch):
-    """Counts the calls of `_lm_step`: the LM iterations run, on either path."""
+    """Counts the calls of `_lm_step`: the LM iterations run."""
     calls = [0]
     step = tba._lm_step
 
@@ -195,28 +196,26 @@ def _counting(monkeypatch):
 @pytest.mark.parametrize("robust", [True, False])
 @pytest.mark.parametrize("case", list(CASES))
 def test_lm_step_on_static_buffers_equals_the_functional_loop(case, robust, monkeypatch):
-    """`_lm_step` run in place on `_LMGraphs`' static buffers, as a CUDA
-    graph replays it (here uncaptured), gives the functional loop's phase
-    bit for bit in as many iterations; what it returns is copied out of the
-    buffers, so it outlives the next problem loaded into them."""
+    """`_run_phase` on `_LMGraphs`' static buffers, as a CUDA graph replays
+    it (here the eager body), gives the plain `_lm_step` loop's phase
+    (`eager_phase`) bit for bit in as many iterations; what it returns is
+    copied out of the buffers, so it outlives the next problem loaded into
+    them."""
     _, _, cam, pt = _both(_problem(3, **CASES[case]))
     oh = tba._onehot_cam(pt)
     act = pt.obs_valid & (pt.obs_cam >= 0) & pt.pt_valid[:, None]
     lam0 = torch.full((), 1e-4)
+    *want, n_eager = eager_phase(cam, pt.cam_pose, pt.pt_pos, pt, oh, act, robust, 10, lam0)
     calls = _counting(monkeypatch)
-    want = tba._run_phase(cam, pt.cam_pose, pt.pt_pos, pt, oh, act, robust, 10, lam0)
-    n_eager, calls[0] = calls[0], 0
     graphs = tba._LMGraphs(cam, pt).load(pt, oh)
-    got = tba._run_phase(cam, pt.cam_pose, pt.pt_pos, pt, oh, act, robust, 10, lam0,
-                         graphs=graphs)
+    got = tba._run_phase(graphs, pt.cam_pose, pt.pt_pos, act, robust, 10, lam0)
     assert calls[0] == n_eager >= 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     kept = [x.clone() for x in got]
     _, _, _, p2 = _both(_problem(5, **CASES[case]))
-    oh2 = tba._onehot_cam(p2)
-    tba._run_phase(cam, p2.cam_pose, p2.pt_pos, p2, oh2, act, robust, 10, lam0,
-                   graphs=graphs.load(p2, oh2))
+    tba._run_phase(graphs.load(p2, tba._onehot_cam(p2)), p2.cam_pose, p2.pt_pos, act, robust,
+                   10, lam0)
     assert not torch.equal(graphs.state[1], kept[1])
     for a, b in zip(got, kept):
         assert torch.equal(a, b)
@@ -226,15 +225,15 @@ def test_lm_step_on_static_buffers_equals_the_functional_loop(case, robust, monk
 @pytest.mark.parametrize("case", list(CASES))
 def test_local_ba_on_static_buffers_equals_eager(case, abort):
     """The whole schedule with both phases on one set of static buffers
-    (phase A's and B's steps share the problem) equals the eager one, every
-    field bit for bit."""
+    (phase A's and B's steps share the problem) equals the plain loop's
+    (`eager_local_ba`), every field bit for bit, and so does a second call
+    on the same buffers."""
     _, _, cam, pt = _both(_problem(3, **CASES[case]))
-    oh = tba._onehot_cam(pt)
-    want = tba._local_ba(cam, pt, oh, 5, 10, abort, None)
-    got = tba._local_ba(cam, pt, oh, 5, 10, abort, tba._LMGraphs(cam, pt).load(pt, oh))
-    for name, a, b in zip(tba.BAResult._fields, got, want):
-        assert torch.equal(a, b), name
-    assert torch.equal(want.cam_pose, tba.local_bundle_adjustment(cam, pt, abort=abort).cam_pose)
+    want, _ = eager_local_ba(cam, pt, abort)
+    for _ in range(2):
+        got = tba.local_bundle_adjustment(cam, pt, abort=abort)
+        for name, a, b in zip(tba.BAResult._fields, got, want):
+            assert torch.equal(a, b), name
 
 
 def test_ba_reduces_error_and_abort_does_less():

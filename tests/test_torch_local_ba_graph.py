@@ -1,6 +1,8 @@
 """Local BA on the card, where each LM iteration is one CUDA graph replay
-over static buffers (`local_ba._LMGraphs`), against the eager loop
-(`local_ba._local_ba` without them) on the same device.
+over static buffers (`local_ba._LMGraphs`), against a plain loop of
+`local_ba._lm_step` on the caller's tensors (`eager_phase`,
+`eager_local_ba`, the oracle `test_torch_local_ba.py` uses too) on the
+same device.
 
 The problems: those of `test_torch_local_ba.py` (`CASES`, its generator
 and seeds, with the port's `se3_exp` in place of JAX's, which the card
@@ -8,8 +10,8 @@ lacks), robust and plain phases, `abort` both ways; its O_BA_ESC
 escalation map (16 lanes); and the windows the port's own mapper builds on
 the card over the orbit sequence of `test_torch_local_mapping.py`, with
 64 keyframe slots so that they have the benchmark's shapes (C = 64,
-L = 4,096, O = 8). Every `BAResult` field is bit-identical to the eager
-loop's, in as many LM iterations (`mapping.ba_graph_replays`); one graph
+L = 4,096, O = 8). Every `BAResult` field is bit-identical to the
+oracle's, in as many LM iterations (`mapping.ba_graph_replays`); one graph
 is captured per key; a result outlives the next call; a steady call makes
 one host sync per LM iteration and no other.
 
@@ -44,7 +46,7 @@ CASES = {
     "stereo_outliers": dict(stereo=True, noise=0.3, outliers=0.1),
 }
 # The host reads a steady local BA makes besides the one read of `small`
-# after each LM iteration (`_LMGraphs.run`): none. The one-hot, the costs,
+# after each LM iteration (`local_ba._run_phase`): none. The one-hot, the costs,
 # the inlier split, the SO(3) projection (`rt_to_mat`'s device fill) and
 # the copies into and out of the static buffers all stay on the device.
 WRAPPER_READS: tuple = ()
@@ -104,25 +106,37 @@ def _problem(seed, dev, n_cams=6, n_pts=120, obs_per_pt=4, noise=0.3, pose_noise
                                  for k, v in d.items()})
 
 
-def _eager(cam, prob, abort=False):
-    return local_ba._local_ba(cam, prob, local_ba._onehot_cam(prob), 5, 10, abort, None)
+def eager_phase(cam, poses, pts, prob, oh, active, robust, n_iters, lam0):
+    """`local_ba._run_phase` as a plain loop of `_lm_step` on the caller's
+    tensors: (poses, pts, cost, the LM iterations run)."""
+    free = (prob.cam_valid & ~prob.cam_fixed)[:, None]
+    cur = local_ba._cost_at(cam, poses, pts, prob, oh, active, robust)
+    lam, small = lam0, torch.zeros((), dtype=torch.int32, device=pts.device)
+    n = 0
+    while n < n_iters:
+        poses, pts, lam, cur, small = local_ba._lm_step(cam, prob, oh, active, robust, free,
+                                                        poses, pts, lam, cur, small)
+        n += 1
+        if int(small) >= 2:
+            break
+    return se3.orthonormalize(poses), pts, cur, n
 
 
-def _iterations(fn, *args):
-    """(LM iterations fn runs eagerly, its result)."""
-    calls = [0]
-    step = local_ba._lm_step
-
-    def counted(*a):
-        calls[0] += 1
-        return step(*a)
-
-    local_ba._lm_step = counted
-    try:
-        out = fn(*args)
-    finally:
-        local_ba._lm_step = step
-    return calls[0], out
+def eager_local_ba(cam, prob, abort=False):
+    """`local_ba.local_bundle_adjustment`'s schedule on `eager_phase`:
+    (the `BAResult`, the LM iterations run)."""
+    oh = local_ba._onehot_cam(prob)
+    struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
+    lam0 = torch.full((), 1e-4, dtype=prob.pt_pos.dtype, device=prob.pt_pos.device)
+    poses, pts, _, n = eager_phase(cam, prob.cam_pose, prob.pt_pos, prob, oh, struct, True, 5,
+                                   lam0)
+    if not abort:
+        active, _ = local_ba._inliers(cam, poses, pts, prob, oh, struct)
+        poses, pts, _, nb = eager_phase(cam, poses, pts, prob, oh, active, False, 10, lam0)
+        n += nb
+    inlier, chi2 = local_ba._inliers(cam, poses, pts, prob, oh, struct)
+    total = torch.sum(torch.where(inlier, chi2, torch.zeros_like(chi2)))
+    return local_ba.BAResult(cam_pose=poses, pt_pos=pts, obs_inlier=inlier, chi2=total), n
 
 
 def _counters(fn, *args):
@@ -146,7 +160,7 @@ def _assert_same(got, want, what):
 
 
 def _assert_graph_equals_eager(cam, prob, abort, what):
-    n_eager, want = _iterations(_eager, cam, prob, abort)
+    want, n_eager = eager_local_ba(cam, prob, abort)
     counters, got = _counters(local_ba.local_bundle_adjustment, cam, prob, 5, 10, abort)
     _assert_same(got, want, what)
     assert counters["mapping.ba_graph_replays"] == n_eager > 0, what
@@ -160,10 +174,11 @@ def test_graph_phase_is_bit_identical_to_eager(dev, case, robust):
     oh = local_ba._onehot_cam(prob)
     act = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
     lam0 = torch.full((), 1e-4, device=dev)
-    args = (CAM, prob.cam_pose, prob.pt_pos, prob, oh, act, robust, 10, lam0)
-    n_eager, want = _iterations(local_ba._run_phase, *args)
-    graphs = local_ba._graphs_for(CAM, prob, oh)
-    counters, got = _counters(lambda: local_ba._run_phase(*args, graphs=graphs))
+    *want, n_eager = eager_phase(CAM, prob.cam_pose, prob.pt_pos, prob, oh, act, robust, 10,
+                                 lam0)
+    static = local_ba._graphs_for(CAM, prob, oh)
+    counters, got = _counters(local_ba._run_phase, static, prob.cam_pose, prob.pt_pos, act,
+                              robust, 10, lam0)
     for name, a, b in zip(("poses", "pts", "cur"), got, want):
         assert torch.equal(a, b), (case, robust, name)
     assert counters["mapping.ba_graph_replays"] == n_eager >= 2
@@ -325,6 +340,6 @@ def test_steady_call_reads_the_host_once_per_iteration(dev, mapper_windows):
         finally:
             torch.cuda.set_sync_debug_mode(prev)
     sites = [(w.filename, w.lineno) for w in seen if metrics.SYNC_MESSAGE in str(w.message)]
-    reads = [s for s in sites if "int(self.state[4])" in linecache.getline(*s)]
+    reads = [s for s in sites if "int(static.state[4])" in linecache.getline(*s)]
     assert len(reads) == counters["mapping.ba_graph_replays"] > 0
     assert sorted(set(sites) - set(reads)) == sorted(WRAPPER_READS), sites
